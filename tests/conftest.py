@@ -26,3 +26,9 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 300) -> str:
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's CUDA kernels); "
+        "skips without one")
