@@ -96,12 +96,11 @@ def check_hash_aggregate(ids, vals, n_bins, label):
     both sides are f32 sums of the same terms in different orders, whose
     difference is a few units of 2^-24 times that sum per term added."""
     import torch
-    from repro_torch.kernels.hash_aggregate.ops import \
-        hash_aggregate_multi_cuda
+    from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
     from repro_torch.kernels.hash_aggregate.ref import \
         hash_aggregate_multi_ref
-    a = hash_aggregate_multi_cuda(ids, vals, n_bins=n_bins)
-    b = hash_aggregate_multi_cuda(ids, vals, n_bins=n_bins)
+    a = hash_aggregate_multi(ids, vals, n_bins=n_bins, mode="cuda")
+    b = hash_aggregate_multi(ids, vals, n_bins=n_bins, mode="cuda")
     plain = hash_aggregate_multi_ref(ids, vals, n_bins=n_bins)
     scale = hash_aggregate_multi_ref(ids, vals.abs(), n_bins=n_bins)
     torch.cuda.synchronize()
@@ -120,9 +119,9 @@ def check_hash_aggregate(ids, vals, n_bins, label):
 def check_join_probe(bk, bv, pk, label):
     """Kernel vs plain version: vals and found must be equal."""
     import torch
-    from repro_torch.kernels.join_probe.ops import join_probe_cuda
+    from repro_torch.kernels.join_probe import join_probe
     from repro_torch.kernels.join_probe.ref import join_probe_ref
-    v, f = join_probe_cuda(bk, bv, pk)
+    v, f = join_probe(bk, bv, pk, mode="cuda")
     rv, rf = join_probe_ref(bk, bv, pk)
     torch.cuda.synchronize()
     if not (torch.equal(v, rv) and torch.equal(f, rf)):
@@ -191,16 +190,15 @@ def kernel_phase(data, dev):
 
 def time_hash_aggregate(args, kw, label):
     import torch
-    from repro_torch.kernels.hash_aggregate.ops import \
-        hash_aggregate_multi_cuda
+    from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
     from repro_torch.kernels.hash_aggregate.ref import \
         hash_aggregate_multi_ref
     ids, vals = args[0], args[1]
     n_bins = kw["n_bins"]
     P, T = ids.shape
     C = vals.shape[2]
-    ms = cuda_ms(lambda: hash_aggregate_multi_cuda(ids, vals, n_bins=n_bins),
-                 reps=20)
+    ms = cuda_ms(lambda: hash_aggregate_multi(ids, vals, n_bins=n_bins,
+                                              mode="cuda"), reps=20)
     plain = cuda_ms(lambda: hash_aggregate_multi_ref(ids, vals,
                                                      n_bins=n_bins), reps=5)
     # one library call for the same sums: index_add_ over p * n_bins + id
@@ -218,19 +216,24 @@ def time_hash_aggregate(args, kw, label):
 
 
 def time_join_probe(args, label):
-    from repro_torch.kernels.join_probe.ops import join_probe_cuda
+    from repro_torch.kernels.join_probe import join_probe
     from repro_torch.kernels.join_probe.ref import join_probe_ref
     bk, bv, pk = args
     P, Bk = bk.shape
     Pk = pk.shape[1]
-    ms = cuda_ms(lambda: join_probe_cuda(bk, bv, pk), reps=5)
+    ms = cuda_ms(lambda: join_probe(bk, bv, pk, mode="cuda"), reps=5)
     plain = cuda_ms(lambda: join_probe_ref(bk, bv, pk), reps=1)
     n_bytes = 8 * P * Bk + 4 * P * Pk + 5 * P * Pk
-    # every (probe, build) pair of a partition: a compare and a select-add
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * P * Pk * Bk)
+    # The function's own work: build keys are unique apart from the -1
+    # padding, so a hashed or sorted probe inside each partition gives the
+    # same answer with one insert per build slot and one lookup per probe
+    # slot. The nested loop of join_probe.cu compares every (probe, build)
+    # pair instead; that count is reported apart, as the design's floor.
+    b_ms, b_by = bound_ms(n_bytes, float(P * (Bk + Pk)))
+    design_ms = P * Pk * Bk / F32_OPS_PER_S * 1e3
     return dict(shape=f"{label}: build ({P}, {Bk}), probe ({P}, {Pk})",
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, design_floor_ms=design_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -300,19 +303,36 @@ CONTEXTS = {
     "plain": dict(executor="xla", join="sorted"),       # no kernel
     "cost": dict(executor="cost"),                      # the default
 }
-# Sums are f32 over up to 1.5M rows per group (6M for q6). Their expected
-# relative error is about sqrt(n) * 2^-24 ~ 1e-4 at worst here, and the
-# worst case n * 2^-24 ~ 0.09 is far from typical; 1e-3 holds every f32
-# path to ten times the expected error and still catches a lost or
-# doubled row group.
-SUM_RTOL, SUM_ATOL = 1e-3, 1e-2
+# Sums are f32 over up to 1.5M rows per group (6M for q6), taken in a
+# different order by each path. The limit on their relative deviation
+# (|got - want| / max(|want|, 1)) is set from the largest readings of
+# sound runs, printed on the "sums:" line, with a margin for the run-to-run
+# variation of the plain path's float atomics.
+SUM_RTOL = 1e-5
 EXACT_KEYS = ("o_orderkey", "count_order", "_count", "_overflow", "med_qty",
               "med_price", "p90_price", "p25_qty")
 
 
+def rel_dev(got, want) -> float:
+    """Largest |got - want| / max(|want|, 1) over the entries."""
+    import numpy as np
+    if got.size == 0:
+        return 0.0
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)))
+
+
 def check_results(results, oracle):
+    """Exact keys must equal the plain path's; sums are read against the
+    plain path and against the float64 evaluation, and the largest
+    relative deviation of each kind is held to SUM_RTOL."""
     import numpy as np
     import torch
+    worst = {"vs plain": (0.0, ""), "vs float64": (0.0, "")}
+
+    def note(kind, r, label):
+        if r > worst[kind][0]:
+            worst[kind] = (r, label)
+
     for name in results["plain"]:
         ref = {k: v.cpu() for k, v in results["plain"][name].items()}
         for ctx, res in results.items():
@@ -328,29 +348,31 @@ def check_results(results, oracle):
                     if not torch.equal(v, ref[k]):
                         raise AssertionError(f"{name}/{ctx}/{k}: differs "
                                              "from the plain path")
-                elif not np.allclose(v.numpy(), ref[k].numpy(),
-                                     rtol=SUM_RTOL, atol=SUM_ATOL):
-                    raise AssertionError(f"{name}/{ctx}/{k}: off the plain "
-                                         "path beyond the f32 tolerance")
+                else:
+                    note("vs plain", rel_dev(v.double().numpy(),
+                                             ref[k].double().numpy()),
+                         f"{name}/{ctx}/{k}")
             if int(got.get("_overflow", torch.zeros(()))) != 0:
                 raise AssertionError(f"{name}/{ctx}: overflow")
             for k, want in oracle.get(name, {}).items():
                 want = want.cpu().numpy()
                 g = got[k].to(torch.float64).numpy()
                 if name == "q3":
-                    # the top-10 revenues against the float64 top 10, and
-                    # against the float64 revenue of the orders chosen
+                    # the top-10 revenues against the float64 revenue of the
+                    # orders chosen, and against the float64 top 10
                     keys = got["o_orderkey"].long().numpy()
-                    if not np.allclose(g, want[keys], rtol=SUM_RTOL):
-                        raise AssertionError(f"q3/{ctx}: revenue of the "
-                                             "chosen orders off")
+                    note("vs float64", rel_dev(g, want[keys]),
+                         f"q3/{ctx}/{k} of the chosen orders")
                     want = np.sort(want)[::-1][:10]
-                if not np.allclose(g, want, rtol=SUM_RTOL, atol=SUM_ATOL):
-                    rel = np.abs(g - want) / np.maximum(np.abs(want), 1)
-                    raise AssertionError(f"{name}/{ctx}/{k}: off the float64 "
-                                         f"evaluation: max rel {rel.max()}")
+                note("vs float64", rel_dev(g, want), f"{name}/{ctx}/{k}")
+    log("sums: largest relative deviation " + ", ".join(
+        f"{kind} {r!r} ({label})" for kind, (r, label) in worst.items()))
+    for kind, (r, label) in worst.items():
+        if r > SUM_RTOL:
+            raise AssertionError(f"{label}: sums {kind} off by {r!r} "
+                                 f"relative, over {SUM_RTOL}")
     log("results: kernel and cost contexts agree with the plain path; sums "
-        f"agree with float64 to rtol={SUM_RTOL}")
+        f"agree with it and with float64 to {SUM_RTOL} relative")
 
 
 def main_path(data):

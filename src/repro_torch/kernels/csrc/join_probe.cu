@@ -9,12 +9,17 @@
 // keeps a partition's whole build tile in VMEM and multiplies a (probe
 // block x build) equality matrix with the build values on the MXU.
 //
-// What bounds it on this card: operations. The function compares every
-// probe slot with every build slot of its partition, P * Pk * Bk compares
-// (5.6e11 for q3's lineitem x orders at SF1), against a few hundred MB of
-// input. There is no tensor-core form: the payload is an f32 row position,
-// exact only below 2^24, so matches are taken with a select and an add, not
-// a product in reduced precision.
+// What bounds it on this card: bytes. Build keys are unique apart from the
+// -1 padding, so a hashed or sorted probe inside each partition does
+// O(P * (Pk + Bk)) work, and the floor is reading the inputs and writing
+// the outputs once (about 132 MB for q3's lineitem x orders at SF1). This
+// nested-loop design does not reach that floor: it compares every probe
+// slot with every build slot of its partition, P * Pk * Bk compares (5.6e11
+// at that call), so its own floor is set by operations, orders of magnitude
+// above the bytes. A hashed probe is the next design. There is no
+// tensor-core form: the payload is an f32 row position, exact only below
+// 2^24, so matches are taken with a select and an add, not a product in
+// reduced precision.
 //
 // Design. One thread holds eight probe slots in registers; the block's
 // threads stream the partition's build side through shared memory in

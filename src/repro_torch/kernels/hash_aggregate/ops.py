@@ -48,8 +48,8 @@ def _bind():
     return fn
 
 
-def hash_aggregate_multi_cuda(ids: torch.Tensor, vals: torch.Tensor, *,
-                              n_bins: int) -> torch.Tensor:
+def _launch(ids: torch.Tensor, vals: torch.Tensor, *,
+            n_bins: int) -> torch.Tensor:
     """Launch the CUDA kernel: ids (P, T) int32, vals (P, T, C) f32, both
     contiguous on one CUDA device. Returns (P, n_bins, C) f32."""
     dev = ids.device
@@ -88,5 +88,5 @@ def hash_aggregate_multi(ids: torch.Tensor, vals: torch.Tensor, *,
     ids: (P, T); vals: (P, T, C) -> (P, n_bins, C) f32. The kernel's sums
     are the same bits from run to run (no float atomics)."""
     if kernel_mode(mode, ids.device) == "cuda":
-        return hash_aggregate_multi_cuda(ids, vals, n_bins=n_bins)
+        return _launch(ids, vals, n_bins=n_bins)
     return hash_aggregate_multi_ref(ids, vals, n_bins=n_bins)

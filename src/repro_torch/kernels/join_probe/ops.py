@@ -27,9 +27,8 @@ def _bind():
     return fn
 
 
-def join_probe_cuda(build_keys: torch.Tensor, build_vals: torch.Tensor,
-                    probe_keys: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(build_keys: torch.Tensor, build_vals: torch.Tensor,
+            probe_keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel: build keys/vals (P, Bk) int32/f32, probe
     keys (P, Pk) int32, all contiguous on one CUDA device."""
     dev = probe_keys.device
@@ -60,5 +59,5 @@ def join_probe(build_keys: torch.Tensor, build_vals: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PK-FK partition-local probe -> (matched vals (P,Pk), found (P,Pk))."""
     if kernel_mode(mode, probe_keys.device) == "cuda":
-        return join_probe_cuda(build_keys, build_vals, probe_keys)
+        return _launch(build_keys, build_vals, probe_keys)
     return join_probe_ref(build_keys, build_vals, probe_keys)
