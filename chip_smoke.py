@@ -303,12 +303,17 @@ CONTEXTS = {
     "plain": dict(executor="xla", join="sorted"),       # no kernel
     "cost": dict(executor="cost"),                      # the default
 }
-# Sums are f32 over up to 1.5M rows per group (6M for q6), taken in a
-# different order by each path. The limit on their relative deviation
-# (|got - want| / max(|want|, 1)) is set from the largest readings of
-# sound runs, printed on the "sums:" line, with a margin for the run-to-run
-# variation of the plain path's float atomics.
-SUM_RTOL = 1e-5
+# Every float output is a sum in f32 (or a ratio of one), read against the
+# float64 evaluation as |got - want| / max(|want|, 1) and held to its
+# context's limit, set from the largest readings of sound runs on the card
+# (printed on the "sums:" line; PERF.md has them). The plain path adds up
+# to 3M rows into one f32 address with float atomics: its error is a bias
+# of the rounding, read at 5.1e-4 (qm's avg_qty, integer quantities whose
+# running sum passes 2^26), so it and the cost context, which runs that
+# path for qm and qq, are held to 1e-3. The kernel context sums rows in
+# short chunks and adds the chunk partials in order; it is held to 1e-5,
+# which still fails a fused path that loses 15 of q1's 1.5M rows per group.
+SUM_RTOL = {"kernel": 1e-5, "plain": 1e-3, "cost": 1e-3}
 EXACT_KEYS = ("o_orderkey", "count_order", "_count", "_overflow", "med_qty",
               "med_price", "p90_price", "p25_qty")
 
@@ -322,16 +327,16 @@ def rel_dev(got, want) -> float:
 
 
 def check_results(results, oracle):
-    """Exact keys must equal the plain path's; sums are read against the
-    plain path and against the float64 evaluation, and the largest
-    relative deviation of each kind is held to SUM_RTOL."""
+    """Integers, counts and order statistics must equal the plain path's;
+    every float output is read against the float64 evaluation, and each
+    context's largest relative deviation is held to its SUM_RTOL."""
     import numpy as np
     import torch
-    worst = {"vs plain": (0.0, ""), "vs float64": (0.0, "")}
+    worst = {ctx: (0.0, "") for ctx in results}
 
-    def note(kind, r, label):
-        if r > worst[kind][0]:
-            worst[kind] = (r, label)
+    def note(ctx, r, label):
+        if r > worst[ctx][0]:
+            worst[ctx] = (r, label)
 
     for name in results["plain"]:
         ref = {k: v.cpu() for k, v in results["plain"][name].items()}
@@ -348,10 +353,8 @@ def check_results(results, oracle):
                     if not torch.equal(v, ref[k]):
                         raise AssertionError(f"{name}/{ctx}/{k}: differs "
                                              "from the plain path")
-                else:
-                    note("vs plain", rel_dev(v.double().numpy(),
-                                             ref[k].double().numpy()),
-                         f"{name}/{ctx}/{k}")
+                elif k not in oracle.get(name, {}):
+                    raise AssertionError(f"{name}/{k}: no float64 evaluation")
             if int(got.get("_overflow", torch.zeros(()))) != 0:
                 raise AssertionError(f"{name}/{ctx}: overflow")
             for k, want in oracle.get(name, {}).items():
@@ -361,18 +364,18 @@ def check_results(results, oracle):
                     # the top-10 revenues against the float64 revenue of the
                     # orders chosen, and against the float64 top 10
                     keys = got["o_orderkey"].long().numpy()
-                    note("vs float64", rel_dev(g, want[keys]),
+                    note(ctx, rel_dev(g, want[keys]),
                          f"q3/{ctx}/{k} of the chosen orders")
                     want = np.sort(want)[::-1][:10]
-                note("vs float64", rel_dev(g, want), f"{name}/{ctx}/{k}")
-    log("sums: largest relative deviation " + ", ".join(
-        f"{kind} {r!r} ({label})" for kind, (r, label) in worst.items()))
-    for kind, (r, label) in worst.items():
-        if r > SUM_RTOL:
-            raise AssertionError(f"{label}: sums {kind} off by {r!r} "
-                                 f"relative, over {SUM_RTOL}")
-    log("results: kernel and cost contexts agree with the plain path; sums "
-        f"agree with it and with float64 to {SUM_RTOL} relative")
+                note(ctx, rel_dev(g, want), f"{name}/{ctx}/{k}")
+    log("sums: largest relative deviation from float64 " + ", ".join(
+        f"[{ctx}] {r!r} ({label})" for ctx, (r, label) in worst.items()))
+    for ctx, (r, label) in worst.items():
+        if r > SUM_RTOL[ctx]:
+            raise AssertionError(f"{label}: off float64 by {r!r} relative, "
+                                 f"over {SUM_RTOL[ctx]}")
+    log("results: kernel and cost contexts give the plain path's integers; "
+        f"sums agree with float64 within {SUM_RTOL}")
 
 
 def main_path(data):
