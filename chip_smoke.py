@@ -7,13 +7,27 @@ Run from the repository root with no arguments:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-main path gives it, drives the port's main path (all seven TPC-H queries
-at SF1 through ``repro_torch.analytics.tpch.run_query``) under the
-kernel, plain and cost-based contexts, checks the answers against each
-other and against a float64 evaluation, shows that the main path launched
-every kernel, and prints the kernels' times beside their bounds. Any
-failed phase exits non-zero. Without a CUDA device it exits 1 and prints
-no result. It imports nothing of JAX and nothing of the JAX package.
+main paths give it, and drives two paths through the port's entry points:
+
+  * the single-device path: all seven TPC-H queries at SF1 through
+    ``repro_torch.analytics.tpch.run_query`` under the kernel, plain and
+    cost-based contexts, checked against each other and against a float64
+    evaluation;
+  * the distributed path: the same queries at SF1 on a virtual mesh of 8
+    shards under the four placement policies x {argsort, radix, cost}
+    Exchange contexts and one composed kernel context, checked against the
+    single-device plain path and float64 (argsort == radix and candidates
+    TopK == replicated bit for bit), then W1/W2/W3 (``engine.dist_median``
+    / ``dist_count`` / ``dist_hash_join``) at the paper's sizes under each
+    policy.
+
+The kernel launch counts are zeroed just before each path and read just
+after it; a kernel of a path that never launched fails the run. It also
+checks that the plain path's float sums are the same bits on every run,
+and prints the kernels' times beside their bounds, warm ms per query and
+peak memory per phase. Any failed phase exits non-zero. Without a CUDA
+device it exits 1 and prints no result. It imports nothing of JAX and
+nothing of the JAX package.
 
 The last lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -306,14 +320,13 @@ CONTEXTS = {
 # Every float output is a sum in f32 (or a ratio of one), read against the
 # float64 evaluation as |got - want| / max(|want|, 1) and held to its
 # context's limit, set from the largest readings of sound runs on the card
-# (printed on the "sums:" line; PERF.md has them). The plain path adds up
-# to 3M rows into one f32 address with float atomics: its error is a bias
-# of the rounding, read at 5.1e-4 (qm's avg_qty, integer quantities whose
-# running sum passes 2^26), so it and the cost context, which runs that
-# path for qm and qq, are held to 1e-3. The kernel context sums rows in
-# short chunks and adds the chunk partials in order; it is held to 1e-5,
-# which still fails a fused path that loses 15 of q1's 1.5M rows per group.
-SUM_RTOL = {"kernel": 1e-5, "plain": 1e-3, "cost": 1e-3}
+# (printed on the "sums:" line; PERF.md has them). The kernel context sums
+# rows in short chunks and adds the chunk partials in order; 1e-5 still
+# fails a fused path that loses 15 of q1's 1.5M rows per group. The plain
+# path's segment sums (sorted, a tree per hot group) read 2.6e-7 at most on
+# an H100 80GB HBM3 at 700 W, so every context is held to 1e-5.
+SUM_RTOL = {"kernel": 1e-5, "plain": 1e-5, "cost": 1e-5}
+SINGLE_DEVICE_KERNELS = ("hash_aggregate_multi", "join_probe")
 EXACT_KEYS = ("o_orderkey", "count_order", "_count", "_overflow", "med_qty",
               "med_price", "p90_price", "p25_qty")
 
@@ -394,14 +407,489 @@ def main_path(data):
     launches = dict(common.LAUNCHES)        # just after it
     log(f"main path: 7 queries x {len(ctxs)} contexts in "
         f"{time.perf_counter() - t0:.3f} s (first runs), launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SINGLE_DEVICE_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     warm = {c: {q: cuda_ms(lambda q=q, ctx=ctx: run_query(q, data,
                                                           context=ctx),
                            reps=WARM_REPS, warmup=0)
                 for q in LOGICAL_QUERIES} for c, ctx in ctxs.items()}
     return results, launches, warm
+
+
+# ---------------------------------------------------------------------------
+# phase 5: block_histograms against its plain version; R2's bit-stable sums
+# ---------------------------------------------------------------------------
+N_SHARDS = 8
+POLICIES = ("FIRST_TOUCH", "LOCAL_ALLOC", "INTERLEAVE", "PREFERRED")
+
+
+def check_block_histograms(keys, n_bins, shift, block, label):
+    """Kernel vs plain version: the counts must be equal."""
+    import torch
+    from repro_torch.kernels.radix_partition import block_histograms
+    from repro_torch.kernels.radix_partition.ref import block_histograms_ref
+    got = block_histograms(keys, n_bins=n_bins, shift=shift, block=block,
+                           mode="cuda")
+    want = block_histograms_ref(keys, n_bins=n_bins, shift=shift,
+                                block=block)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        raise AssertionError(f"block_histograms {label}: differs from the "
+                             f"plain version in {int((got != want).sum())} "
+                             "counts")
+    return 0
+
+
+def radix_phase(data, dev):
+    """Capture the radix Exchange's block_histograms inputs on the
+    distributed path at SF1 (8 shards), hold the kernel against its plain
+    version there and on radix-digit edge cases, and check the ops built
+    on it at an unaligned N."""
+    import numpy as np
+    import torch
+    from repro_torch.analytics import engine, planner
+    from repro_torch.analytics.tpch import run_query
+    from repro_torch.core.config import PlacementPolicy
+    from repro_torch.kernels.radix_partition import (padded_bin_counts,
+                                                     radix_partition)
+
+    ctx = planner.ExecutionContext(
+        n_shards=N_SHARDS, policy=PlacementPolicy.INTERLEAVE,
+        dist_join="partitioned", exchange_impl="radix")
+    calls = []
+    with capture(engine, "block_histograms", calls):
+        run_query("q3", data, context=ctx)
+    torch.cuda.synchronize()
+    shapes = sorted({(a[0].shape[0], kw["n_bins"], kw["block"])
+                     for a, kw in calls})
+    for args, kw in calls:
+        check_block_histograms(args[0], kw["n_bins"], kw["shift"],
+                               kw["block"], "q3 route owners")
+    log(f"block_histograms q3 route owners (SF1, {N_SHARDS} shards): "
+        f"{len(calls)} calls, (N, n_bins, block) {shapes}, all equal")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_cases = 0
+    for n_bins, shift, block in ([(256, s, 256) for s in (0, 8, 16, 24)]
+                                 + [(8, 0, 128), (8, 0, 1024), (256, 8, 128),
+                                    (256, 16, 1024), (2, 31, 256)]):
+        keys = torch.randint(-(1 << 31), (1 << 31) - 1, (block * 977,),
+                             device=dev, dtype=torch.int32, generator=gen)
+        keys[::5] = -1                                # routing padding
+        check_block_histograms(keys, n_bins, shift, block,
+                               f"bins {n_bins} shift {shift} block {block}")
+        n_cases += 1
+    log(f"block_histograms: {n_cases} radix-digit cases (negative keys, "
+        "-1 sentinels, bins 2-256, shifts 0-31, blocks 128-1024) equal")
+
+    n = 1_000_003                                     # not a block multiple
+    keys = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), device=dev,
+                         dtype=torch.int32, generator=gen)
+    k_np = keys.cpu().numpy()
+    for shift in (0, 8):
+        digits = (k_np.view(np.uint32) >> shift) & 63
+        counts = padded_bin_counts(keys, n_bins=64, shift=shift, block=1024)
+        if not np.array_equal(counts.cpu().numpy(),
+                              np.bincount(digits, minlength=64)):
+            raise AssertionError(f"padded_bin_counts shift {shift} differs")
+        ko, vo, starts = radix_partition(keys, keys.to(torch.float32),
+                                         n_bins=64, shift=shift, block=1024)
+        order = np.argsort(digits, kind="stable")
+        want = np.cumsum(np.bincount(digits, minlength=64))
+        if not (np.array_equal(ko.cpu().numpy(), k_np[order])
+                and np.array_equal(starts.cpu().numpy(),
+                                   want - np.bincount(digits,
+                                                      minlength=64))):
+            raise AssertionError(f"radix_partition shift {shift} differs")
+    log(f"padded_bin_counts / radix_partition at N={n}: equal to numpy")
+    return max(calls, key=lambda c: c[0][0].shape[0])
+
+
+def time_block_histograms(args, kw, label):
+    import torch
+    from repro_torch.kernels.radix_partition import block_histograms
+    from repro_torch.kernels.radix_partition.ref import (block_histograms_ref,
+                                                         radix_digits)
+    keys = args[0]
+    n_bins, shift, block = kw["n_bins"], kw["shift"], kw["block"]
+    N = keys.shape[0]
+    ms = cuda_ms(lambda: block_histograms(keys, n_bins=n_bins, shift=shift,
+                                          block=block, mode="cuda"), reps=50)
+    plain = cuda_ms(lambda: block_histograms_ref(keys, n_bins=n_bins,
+                                                 shift=shift, block=block),
+                    reps=20)
+    # one library call for the same counts, on the flat (block, digit) index
+    n_blocks = N // block
+    flat = (torch.arange(N, device=keys.device) // block * n_bins
+            + radix_digits(keys, n_bins, shift))
+    lib = cuda_ms(lambda: torch.bincount(flat, minlength=n_blocks * n_bins),
+                  reps=20)
+    b_ms, b_by = bound_ms(4 * N + 4 * n_blocks * n_bins, N)
+    return dict(shape=f"{label}: keys ({N},) int32, n_bins {n_bins}, "
+                f"block {block}", ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+def r2_phase(data):
+    """The plain path's float segment sums are the same bits on every run
+    (ROADMAP Queue 3, R2): q1's and q18's SF1 shapes, run twice."""
+    import torch
+    from repro_torch.analytics.columnar import segment_sum
+    li = data.tables["lineitem"]
+    n_orders = data.tables["orders"]["o_orderkey"].shape[0]
+    g1 = li["l_returnflag"] * 2 + li["l_linestatus"]
+    stacked = torch.stack([li["l_quantity"], li["l_extendedprice"],
+                           li["l_discount"]], dim=1)
+    cases = {"q1 (6 groups)": (li["l_extendedprice"], g1, 6),
+             "q1 stacked (6 groups, 3 columns)": (stacked, g1, 6),
+             "q18 (orders groups)": (li["l_quantity"], li["l_orderkey"],
+                                     n_orders)}
+    times = {}
+    for label, (vals, ids, n) in cases.items():
+        a = segment_sum(vals, ids, n)
+        b = segment_sum(vals, ids, n)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"segment_sum {label}: two runs differ")
+        ms = cuda_ms(lambda: segment_sum(vals, ids, n), reps=5)
+        idx = ids.to(torch.int64)
+        atomics = cuda_ms(lambda: torch.zeros((n,) + tuple(vals.shape[1:]),
+                                              device=vals.device)
+                          .index_add_(0, idx, vals), reps=5)
+        times[label] = dict(rows=int(vals.shape[0]), ms=ms,
+                            index_add_ms=atomics)
+    log(f"R2: segment_sum bit-equal across two runs at {sorted(cases)}; "
+        f"ms {json.dumps(times)}")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the distributed path at SF1 on 8 virtual shards
+# ---------------------------------------------------------------------------
+def dist_contexts():
+    from repro_torch.analytics import planner
+    from repro_torch.core.config import PlacementPolicy
+    out = {}
+    for pol in POLICIES:
+        p = PlacementPolicy[pol]
+        for impl in ("argsort", "radix"):
+            out[f"{impl}/{pol}"] = planner.ExecutionContext(
+                n_shards=N_SHARDS, policy=p, dist_join="partitioned",
+                exchange_impl=impl)
+        out[f"cost/{pol}"] = planner.ExecutionContext(n_shards=N_SHARDS,
+                                                      policy=p)
+    out["composed/INTERLEAVE"] = planner.ExecutionContext(
+        n_shards=N_SHARDS, policy=PlacementPolicy.INTERLEAVE,
+        executor="kernel", exchange_impl="radix", dist_join="partitioned")
+    return out
+
+
+# A distributed sum adds each shard's partial in f32 and the shards' in rank
+# order; its error against float64 is held to the single-device limit (the
+# readings on an H100 80GB HBM3 at 700 W were at most 1.3e-7).
+DIST_SUM_RTOL = {"argsort": 1e-5, "radix": 1e-5, "cost": 1e-5,
+                 "composed": 1e-5}
+RETRY_CAPACITY = 4.0     # routing capacity factor of an overflowed re-run
+
+
+def same_bits(a, b) -> bool:
+    """Equal dicts of tensors, NaN equal to NaN."""
+    import torch
+    if set(a) != set(b):
+        return False
+    return all(x.dtype == b[k].dtype and x.shape == b[k].shape
+               and torch.equal(torch.nan_to_num(x, nan=-7.0),
+                               torch.nan_to_num(b[k], nan=-7.0))
+               for k, x in a.items())
+
+
+def check_against_plain(label, got, ref, oracle, rtol, worst):
+    """One query's outputs against the single-device plain path (exact
+    keys) and the float64 evaluation (sums, held to ``rtol``)."""
+    import numpy as np
+    import torch
+    name = label.split("/")[-1]
+    if set(got) != set(ref):
+        raise AssertionError(f"{label}: keys {sorted(got)}")
+    for k, v in got.items():
+        v, r = v.cpu(), ref[k].cpu()
+        if v.shape != r.shape:
+            raise AssertionError(f"{label}/{k}: shape {v.shape}")
+        if k in EXACT_KEYS or not v.is_floating_point():
+            if not torch.equal(torch.nan_to_num(v, nan=-7.0),
+                               torch.nan_to_num(r, nan=-7.0)):
+                raise AssertionError(f"{label}/{k}: differs from the "
+                                     "single-device plain path")
+        elif not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}/{k}: not finite")
+    for k, want in oracle.get(name, {}).items():
+        want = want.cpu().numpy()
+        g = got[k].to(torch.float64).cpu().numpy()
+        if name == "q3":
+            want = np.sort(want)[::-1][:10]
+        r = rel_dev(g, want)
+        if r > worst[0]:
+            worst[:] = [r, f"{label}/{k}"]
+        if r > rtol:
+            raise AssertionError(f"{label}/{k}: off float64 by {r!r} "
+                                 f"relative, over {rtol}")
+
+
+def dist_main_path(data, plain, oracle):
+    """Drive the 7 queries under every distributed context, check them, and
+    time them warm. Returns (launches, warm ms, peak bytes)."""
+    import dataclasses
+    import torch
+    from repro_torch.analytics.tpch import LOGICAL_QUERIES, run_query
+    from repro_torch.kernels import common
+
+    ctxs = dist_contexts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()                 # just before the path
+    t0 = time.perf_counter()
+    results = {c: {q: run_query(q, data, context=ctx)
+                   for q in LOGICAL_QUERIES} for c, ctx in ctxs.items()}
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)        # just after it
+    peak = torch.cuda.max_memory_allocated()
+    log(f"distributed path: 7 queries x {len(ctxs)} contexts on "
+        f"{N_SHARDS} virtual shards in {time.perf_counter() - t0:.3f} s "
+        f"(first runs), launches {launches}, peak {peak / 2**30:.3f} GiB")
+    for name in ("block_histograms", "hash_aggregate_multi"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the distributed path never launched "
+                                 f"{name}")
+
+    # _overflow: 0, or stated and the query re-run with more capacity
+    overflowed = {(c, q): int(r["_overflow"])
+                  for c, res in results.items() for q, r in res.items()
+                  if "_overflow" in r and int(r["_overflow"]) != 0}
+    for (c, q), ovf in sorted(overflowed.items()):
+        log(f"overflow stated: {q} under {c}: {ovf} records beyond the "
+            f"routing capacity (capacity_factor "
+            f"{ctxs[c].capacity_factor}); re-run at {RETRY_CAPACITY}")
+    worst = {kind: [0.0, ""] for kind in DIST_SUM_RTOL}
+    for c, res in results.items():
+        kind = c.split("/")[0]
+        for q, got in res.items():
+            if (c, q) in overflowed:
+                ctx = dataclasses.replace(ctxs[c],
+                                          capacity_factor=RETRY_CAPACITY)
+                got = run_query(q, data, context=ctx)
+                if int(got["_overflow"]) != 0:
+                    raise AssertionError(f"{q} under {c}: overflow at "
+                                         f"capacity {RETRY_CAPACITY}")
+            check_against_plain(f"{c}/{q}", got, plain[q], oracle,
+                                DIST_SUM_RTOL[kind], worst[kind])
+    log("distributed sums: largest relative deviation from float64 "
+        + ", ".join(f"[{k}] {r!r} ({label})" for k, (r, label)
+                    in worst.items()))
+    for pol in POLICIES:
+        for q in LOGICAL_QUERIES:
+            if not same_bits(results[f"argsort/{pol}"][q],
+                             results[f"radix/{pol}"][q]):
+                raise AssertionError(f"{q} under {pol}: the argsort and "
+                                     "radix layouts give different bits")
+        top = {m: run_query("q3", data, context=dataclasses.replace(
+            ctxs[f"argsort/{pol}"], dist_topk=m))
+            for m in ("candidates", "replicated")}
+        if not same_bits(top["candidates"], top["replicated"]):
+            raise AssertionError(f"q3 under {pol}: candidates TopK differs "
+                                 "from replicated")
+    for c in ("radix/INTERLEAVE", "cost/FIRST_TOUCH"):
+        for q in LOGICAL_QUERIES:
+            if not same_bits(run_query(q, data, context=ctxs[c]),
+                             results[c][q]):
+                raise AssertionError(f"{q} under {c}: a second run gives "
+                                     "other bits")
+    log("distributed results: the plain path's integers, counts, order "
+        "statistics and o_orderkey under every context; argsort == radix "
+        "and candidates == replicated bit for bit; second runs "
+        "bit-identical")
+    warm = {c: {q: cuda_ms(lambda q=q, ctx=ctx: run_query(q, data,
+                                                          context=ctx),
+                           reps=WARM_REPS, warmup=0)
+                for q in LOGICAL_QUERIES} for c, ctx in ctxs.items()}
+    for c, q in (("radix/INTERLEAVE", "q5"), ("cost/FIRST_TOUCH", "q3"),
+                 ("cost/FIRST_TOUCH", "q1")):
+        log(f"device share [{c} {q}]: " + json.dumps(device_share(
+            lambda: run_query(q, data, context=ctxs[c]))))
+    return launches, warm, peak, sorted(overflowed)
+
+
+def device_share(fn):
+    """Wall ms of one warm call beside the device's busy ms (the CUDA
+    kernels' and copies' self time under torch.profiler; one stream, so
+    they do not overlap), the count of device operations, and the count
+    of calls that waited for the device (torch's sync debug mode)."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in dev) / 1e3
+    return dict(wall_ms=wall, device_busy_ms=busy if busy else
+                "not measured", device_ops=sum(e.count for e in dev),
+                idle_share=(1 - busy / wall) if busy else "not measured",
+                host_syncs=sum("synchroniz" in str(w.message)
+                               for w in caught))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: W1 / W2 / W3 under the four policies at the paper's sizes
+# ---------------------------------------------------------------------------
+W_RECORDS, W_CARD = 100_000_000, 1_000_000      # W1/W2 (datasets.py)
+W_BUILD, W_PROBE = 16_000_000, 256_000_000      # W3 (blanas_join)
+# W3's count and checksum are f32 sums (a tree over up to 32M rows per
+# shard, then 8 partials). Read against float64 on an H100 80GB HBM3 at
+# 700 W: 6.25e-8 (the count under INTERLEAVE, 16 of 256M rows) and 4.2e-8
+# (the checksum). The limit is 16x the larger reading, under the tree's
+# worst case (~1.5e-6).
+W_SUM_RTOL = 1e-6
+
+
+def w_phase(dev):
+    """dist_median / dist_count / dist_hash_join on 8 virtual shards under
+    each policy, against single-device evaluations of the same data. A
+    run that exhausts device memory is cut to the first half of its
+    records (at most twice) and the cut is printed."""
+    import gc
+    import torch
+    from repro_torch.analytics import datasets as D
+    from repro_torch.analytics.engine import (dist_count, dist_hash_join,
+                                              dist_median)
+    from repro_torch.core.config import PlacementPolicy
+
+    t0 = time.perf_counter()
+    agg = D.to_tensors(D.zipf(W_RECORDS, W_CARD, exponent=0.5, seed=SEED),
+                       dev)
+    join = D.to_tensors(D.blanas_join(W_BUILD, W_PROBE, seed=SEED), dev)
+    torch.cuda.synchronize()
+    log(f"W data: zipf({W_RECORDS}, {W_CARD}, e=0.5), blanas_join("
+        f"{W_BUILD}, {W_PROBE}), seed {SEED}, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    keys, vals = agg["keys"], agg["vals"]
+    bk, bv, pk = join["build_keys"], join["build_vals"], join["probe_keys"]
+    # float64 checksums of the probe prefixes a cut may take
+    order = torch.argsort(bk)
+    pos = torch.clamp(torch.searchsorted(bk[order], pk), max=W_BUILD - 1)
+    if not torch.equal(bk[order][pos], pk):
+        raise AssertionError("W3 data: a probe key has no build key")
+    matched = bv.to(torch.float64)[order[pos]]
+    sum_ref = {W_PROBE >> c: float(matched[:W_PROBE >> c].sum())
+               for c in range(3)}
+    del order, pos, matched
+    refs = {}
+
+    def ref(kind, n):
+        if (kind, n) not in refs:
+            k, v = keys[:n], vals[:n]
+            counts = torch.bincount(k, minlength=W_CARD)
+            if kind == "count":
+                refs[kind, n] = counts.to(torch.float32)
+            else:
+                # an oracle apart from segment_median: one sort on (key,
+                # value) packed in int64 (values in [0, 1) order as their
+                # bits), exact int64 run starts
+                packed = (k.to(torch.int64) << 32) | v.view(torch.int32)
+                sv = v[torch.argsort(packed)]
+                starts = torch.cumsum(counts, 0) - counts
+                lo = torch.clamp(starts + (counts - 1) // 2, 0, n - 1)
+                hi = torch.clamp(starts + counts // 2, 0, n - 1)
+                refs[kind, n] = torch.where(counts > 0,
+                                            (sv[lo] + sv[hi]) * 0.5,
+                                            torch.nan)
+        return refs[kind, n]
+
+    def w2(p, n):
+        got = dist_count(N_SHARDS, p, W_CARD, device=dev)(keys[:n])
+        if not torch.equal(got, ref("count", n)):
+            raise AssertionError(f"W2 {p.name}: counts differ")
+        return {}
+
+    def w1(p, n):
+        got = dist_median(N_SHARDS, p, W_CARD, device=dev)(keys[:n],
+                                                           vals[:n])
+        if not torch.equal(torch.nan_to_num(got, -7.0),
+                           torch.nan_to_num(ref("median", n), -7.0)):
+            raise AssertionError(f"W1 {p.name}: medians differ from the "
+                                 "sort oracle")
+        return {}
+
+    def w3(p, n):
+        c, s = dist_hash_join(N_SHARDS, p, device=dev)(bk, bv, pk[:n])
+        rc = abs(float(c) - n) / n
+        rs = abs(float(s) - sum_ref[n]) / abs(sum_ref[n])
+        if max(rc, rs) > W_SUM_RTOL:
+            raise AssertionError(f"W3 {p.name}: count {float(c)} of {n}, "
+                                 f"checksum off float64 by {rs!r}")
+        return dict(count=float(c), count_rel_dev=rc, checksum_rel_dev=rs)
+
+    cuts = []
+    out = {}
+    for pol in POLICIES:
+        p = PlacementPolicy[pol]
+        row = {}
+        for wl, run, full in (("W2", w2, W_RECORDS), ("W1", w1, W_RECORDS),
+                              ("W3", w3, W_PROBE)):
+            n = full
+            while True:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                try:
+                    row[wl] = run(p, n)
+                    torch.cuda.synchronize()
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    if n <= full >> 2:
+                        raise
+                    cuts.append(f"{wl} {pol}: out of device memory at {n} "
+                                f"records, cut to {n // 2}")
+                    log(f"CUT: {cuts[-1]}")
+                    n //= 2
+            row[wl].update(records=n, s=time.perf_counter() - t,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        out[pol] = row
+        log(f"W1-W3 {pol}: {json.dumps(row)}")
+    counts = dist_count(N_SHARDS, PlacementPolicy.FIRST_TOUCH, W_CARD,
+                        auto_rebalance=True, device=dev)(keys)
+    if not torch.equal(counts, ref("count", W_RECORDS)):
+        raise AssertionError("W2 FIRST_TOUCH auto_rebalance: counts differ")
+    log("W1-W3: medians equal a single-device sort oracle, counts "
+        "equal bincount (also after auto_rebalance under FIRST_TOUCH), W3 "
+        f"counts and checksums within {W_SUM_RTOL} of float64; cuts: "
+        f"{cuts or 'none'}")
+    return out
+
+
+def peak_line(label: str) -> None:
+    """Print the phase's peak device memory and reset the counter."""
+    import torch
+    torch.cuda.synchronize()
+    log(f"peak memory [{label}]: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
 
 
 def main() -> int:
@@ -443,6 +931,7 @@ def main() -> int:
     log(f"data: SF{SCALE} seed {SEED} {rows} in "
         f"{time.perf_counter() - t0:.3f} s")
 
+    peak_line("data")
     aggs, agg_errs, probe, probe_err = kernel_phase(data, dev)
     agg_times = {q: dict(time_hash_aggregate(*aggs[q], f"{q} at SF1"),
                          max_abs_err=agg_errs[q]) for q in ("q1", "q18")}
@@ -451,10 +940,29 @@ def main() -> int:
         log(f"hash_aggregate timing {json.dumps(t)}")
     log(f"join_probe timing {json.dumps(probe_time)}")
 
+    peak_line("kernels vs plain, single device")
     results, launches, warm = main_path(data)
-    check_results(results, oracle_f64(data.tables))
+    oracle = oracle_f64(data.tables)
+    check_results(results, oracle)
     for c, per_q in warm.items():
         log(f"warm ms per query [{c}]: {json.dumps(per_q)}")
+    peak_line("single-device main path")
+
+    radix_call = radix_phase(data, dev)
+    radix_time = time_block_histograms(
+        *radix_call, f"q3 lineitem owners of one shard at SF1, "
+        f"{N_SHARDS} shards")
+    log(f"block_histograms timing {json.dumps(radix_time)}")
+    r2_phase(data)
+    peak_line("block_histograms vs plain, R2")
+    dist_launches, dist_warm, dist_peak, overflowed = dist_main_path(
+        data, results["plain"], oracle)
+    for c, per_q in dist_warm.items():
+        log(f"warm ms per query [{c}]: {json.dumps(per_q)}")
+    peak_line(f"distributed path, {N_SHARDS} shards")
+    del data, results
+    w_phase(dev)
+    peak_line("W1-W3")
 
     head = agg_times["q18"]
     kernels = [
@@ -462,12 +970,18 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/hash_aggregate.cu",
              replaces="src/repro/kernels/hash_aggregate/kernel.py:54",
              launches=launches["hash_aggregate_multi"], **head,
+             launches_distributed=dist_launches["hash_aggregate_multi"],
              other_shapes=[agg_times["q1"]]),
         dict(name="join_probe", route="cuda",
              source="src/repro_torch/kernels/csrc/join_probe.cu",
              replaces="src/repro/kernels/join_probe/kernel.py:40",
              launches=launches["join_probe"], max_abs_err=probe_err,
              **probe_time),
+        dict(name="block_histograms", route="cuda",
+             source="src/repro_torch/kernels/csrc/radix_partition.cu",
+             replaces="src/repro/kernels/radix_partition/kernel.py:35",
+             launches=dist_launches["block_histograms"], max_abs_err=0.0,
+             **radix_time),
     ]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))

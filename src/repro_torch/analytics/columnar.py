@@ -5,16 +5,16 @@ mask-based (predicates become aggregation weights), joins are PK-FK
 gathers through a sorted index, aggregations are masked segment ops. The
 planner (planner.py) lowers each logical node onto one operator here.
 
-Grouped aggregation has the reference's three layouts:
+Grouped aggregation has the reference's three layouts. Every (sum, avg,
+count) aggregate over one key is stacked into one values matrix
+(``stacked_columns``), which each layout sums:
 
-  "xla"          one plain PyTorch segment op per aggregate (the name is
-                 kept because the explain output prints it). On a CUDA
-                 tensor ``index_add_`` adds with float atomics, so these
-                 sums may differ in the last bits from run to run.
-  "dense"        every (sum, avg, count) aggregate over one key stacked
-                 into one values matrix and summed in ONE pass of the
-                 hash_aggregate kernel over positional chunks; key domains
-                 up to DENSE_GROUP_LIMIT.
+  "xla"          plain PyTorch segment sums (the name is kept because the
+                 explain output prints it): one stable sort by group and a
+                 per-segment reduction of each column, the same bits on
+                 every run (``segment_sum``).
+  "dense"        ONE pass of the hash_aggregate kernel over positional
+                 chunks; key domains up to DENSE_GROUP_LIMIT.
   "partitioned"  the same fused pass after a range-partitioning pass, so
                  each partition's table stays narrow; overflow is counted.
 
@@ -29,6 +29,7 @@ triggers a residual re-probe through the sorted path, or is counted with
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -42,6 +43,9 @@ from repro_torch.kernels.join_probe import join_probe
 # Largest key domain aggregated with full-width per-chunk tables; beyond
 # it the kernel path range-partitions so each partition table stays narrow.
 DENSE_GROUP_LIMIT = 4096
+# Longest segment up to which ``segment_sum`` reduces each segment serially
+# on one thread (beyond it, a block's tree per segment and column).
+SERIAL_SEGMENT_ROWS = 1024
 
 F32 = torch.float32
 
@@ -101,13 +105,38 @@ class Table:
 def segment_sum(data: torch.Tensor, ids: torch.Tensor,
                 n: int) -> torch.Tensor:
     """``jax.ops.segment_sum``: sums rows of ``data`` by ``ids`` into n
-    segments, DROPPING ids outside [0, n) (``index_add_`` would raise), by
-    sending them to a spare segment that is sliced off."""
-    ids = ids.to(torch.int64)
-    ids = torch.where((ids >= 0) & (ids < n), ids, n)
-    out = torch.zeros((n + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
-                      device=data.device)
-    return out.index_add_(0, ids, data)[:n]
+    segments, DROPPING ids outside [0, n) (they go to a spare segment that
+    is sliced off).
+
+    The same bits on every run, on every device: rows are stably sorted by
+    segment and reduced per segment by ``torch.segment_reduce`` (no float
+    atomics, which ``index_add_`` uses on a CUDA tensor). Segment offsets
+    come from a binary search of the sorted ids, so nothing is counted
+    with atomics either. The reduction follows the LONGEST segment (one
+    read of a device scalar): when every segment is short, one call over
+    all columns sums each segment serially on a thread of its own; when
+    one is long (a hot group, or the zero-weight padding rows of a routed
+    buffer that clip into group 0), one call per column sums each segment
+    with a block's tree. Each is far the faster at its end on a card
+    (``chip_smoke.py`` times q1's and q18's shapes). The route is a
+    function of the data, so equal inputs give equal bits."""
+    # int32 ids halve the sort's radix passes
+    itype = torch.int32 if n < (1 << 31) - 2 else torch.int64
+    ids = torch.where((ids >= 0) & (ids < n), ids, n).to(itype)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(
+        sorted_ids, torch.arange(n + 2, dtype=itype, device=ids.device))
+    width = math.prod(data.shape[1:])
+    rows = data[order].reshape(data.shape[0], width)
+    if (data.shape[0] <= SERIAL_SEGMENT_ROWS
+            or int(torch.diff(offsets).max()) <= SERIAL_SEGMENT_ROWS):
+        out = torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
+                                   unsafe=True)
+    else:
+        out = torch.stack([torch.segment_reduce(
+            rows[:, c].contiguous(), "sum", offsets=offsets, unsafe=True)
+            for c in range(width)], dim=1)
+    return out[:n].reshape((n,) + tuple(data.shape[1:]))
 
 
 def _searchsorted_gather(order: torch.Tensor, sk: torch.Tensor,
@@ -219,43 +248,25 @@ def group_aggregate(table: Table, key: str, n_groups: int,
     (n_groups,) tensors plus ``_count`` and ``_overflow`` (records beyond
     partition capacity on the partitioned kernel path, else 0).
     ``layout`` overrides the kernel path's dense/partitioned choice."""
-    if executor == "kernel":
-        return _group_aggregate_kernel(table, key, n_groups, aggs, mode=mode,
-                                       layout=layout,
-                                       n_partitions=n_partitions,
-                                       capacity_factor=capacity_factor)
-    if executor != "xla":
+    if executor == "xla":
+        layout = "xla"
+    elif executor != "kernel":
         raise ValueError(f"unknown executor {executor!r}")
-    return _group_aggregate_xla(table, key, n_groups, aggs)
+    elif layout is None:
+        layout = "dense" if n_groups <= DENSE_GROUP_LIMIT else "partitioned"
+    keys, vals, src = stacked_columns(table, key, n_groups, aggs)
+    sums, overflow = stacked_group_sums(
+        keys, vals, n_groups, layout=layout, mode=mode,
+        n_partitions=n_partitions, capacity_factor=capacity_factor)
+    out = finalize_stacked(
+        aggs, src, sums,
+        lambda op, col: segment_order_stat(table, keys, n_groups, op, col))
+    out["_overflow"] = overflow.to(torch.int32)
+    return out
 
 
 def _zero_i32(dev) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=dev)
-
-
-def _group_aggregate_xla(table: Table, key: str, n_groups: int,
-                         aggs: Mapping[str, Tuple[str, str]]
-                         ) -> Dict[str, torch.Tensor]:
-    """Default plan: one segment op per aggregate."""
-    keys = torch.clamp(table.col(key), 0, n_groups - 1)
-    w = table.weights()
-    out: Dict[str, torch.Tensor] = {}
-    cnt = segment_sum(w, keys, n_groups)
-    for name, (op, col) in aggs.items():
-        if op == "count":
-            out[name] = cnt
-            continue
-        v = table.col(col).to(F32)
-        if op in ("sum", "avg"):
-            s = segment_sum(v * w, keys, n_groups)
-            out[name] = s if op == "sum" else s / torch.clamp(cnt, min=1.0)
-        elif op in ("max", "min") or is_holistic(op):
-            out[name] = segment_order_stat(table, keys, n_groups, op, col)
-        else:
-            raise ValueError(f"unknown agg op {op!r}")
-    out["_count"] = cnt
-    out["_overflow"] = _zero_i32(w.device)
-    return out
 
 
 def stacked_columns(table: Table, key: str, n_groups: int,
@@ -300,7 +311,12 @@ def _segment_selection(keys: torch.Tensor, vals: torch.Tensor,
     """Shared sort pass of the order statistics: per-group value-sorted
     runs plus each run's (count, start). Keys < 0 are EXCLUDED; keys >=
     n_groups clip into the last group. Returns (sorted_vals, counts f32,
-    starts f32 shifted past the excluded run, sorted_keys)."""
+    starts int64 shifted past the excluded run, sorted_keys).
+
+    The reference takes the starts as an f32 cumsum of the counts, which
+    is inexact once the rows pass 2^24 (and on a card its scan order, so
+    its rounding, may vary); the port sums the counts in int64, exactly.
+    The two agree wherever the f32 sum is exact."""
     keys = torch.where(keys < 0, -1, torch.clamp(keys, max=n_groups - 1))
     order_v = torch.argsort(vals, stable=True)
     k1, v1 = keys[order_v], vals[order_v]
@@ -309,11 +325,12 @@ def _segment_selection(keys: torch.Tensor, vals: torch.Tensor,
     counts = segment_sum(torch.ones_like(keys, dtype=F32),
                          torch.clamp(keys, 0, n_groups - 1), n_groups)
     # excluded records (clipped into group 0 above) come off group 0's count
-    n_excl = (keys < 0).sum().to(F32)
+    n_excl = (keys < 0).sum()
     pad = torch.zeros((n_groups,), dtype=F32, device=keys.device)
     pad[0] = n_excl
     counts = counts - pad
-    starts = torch.cumsum(counts, 0) - counts + n_excl
+    c64 = counts.to(torch.int64)
+    starts = torch.cumsum(c64, 0) - c64 + n_excl
     return sv, counts, starts, sk
 
 
@@ -408,25 +425,6 @@ def finalize_stacked(aggs: Mapping[str, Tuple[str, str]], src: list,
         else:
             out[name] = order_stat(op, col)
     out["_count"] = cnt
-    return out
-
-
-def _group_aggregate_kernel(table: Table, key: str, n_groups: int,
-                            aggs: Mapping[str, Tuple[str, str]], *,
-                            mode: Optional[str], layout: Optional[str],
-                            n_partitions: int, capacity_factor: float
-                            ) -> Dict[str, torch.Tensor]:
-    """Tuned plan: all distributive aggregates fused into one kernel sweep."""
-    keys, vals, src = stacked_columns(table, key, n_groups, aggs)
-    if layout is None:
-        layout = "dense" if n_groups <= DENSE_GROUP_LIMIT else "partitioned"
-    sums, overflow = stacked_group_sums(
-        keys, vals, n_groups, layout=layout, mode=mode,
-        n_partitions=n_partitions, capacity_factor=capacity_factor)
-    out = finalize_stacked(
-        aggs, src, sums,
-        lambda op, col: segment_order_stat(table, keys, n_groups, op, col))
-    out["_overflow"] = overflow.to(torch.int32)
     return out
 
 

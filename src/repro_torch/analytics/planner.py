@@ -1,4 +1,4 @@
-"""Cost-based physical planner: the local half of ``repro.analytics.planner``.
+"""Cost-based physical planner: the port of ``repro.analytics.planner``.
 
   logical plan  --lower(plan, ctx)-->  PHYSICAL PLAN  --walk-->  operators
 
@@ -9,16 +9,17 @@ static shape metadata and the ``ExecutionContext``:
   Aggregate   -> plain segment ops ("xla") | dense-chunked fused kernel |
                  range-partitioned fused kernel (``choose_aggregate``)
   Join        -> sorted-index searchsorted gather (build argsorts pooled by
-                 ``JoinIndexPool``) | the join_probe kernel when the data
-                 lies on a CUDA device (``choose_join``)
+                 ``JoinIndexPool``) | the join_probe kernel where the
+                 context forces it (``choose_join``)
 
-The lowering is ported whole, its distributed branches included (they are
-pure shape arithmetic, so ``explain_physical(..., n_shards=n)`` renders
-the same trees as the reference); executing a context that asks for
-shards raises ``NotImplementedError`` until the distributed backend is
-ported. ``_LocalExecutor`` walks the physical tree and calls the columnar
-operators. The reference's ``jax.jit`` becomes an eager callable, held
-with its physical plan in the bounded LRU plan cache.
+With ``ExecutionContext(n_shards=n, policy=P)`` the plan lowers for n
+shards under placement policy P (Exchange, Compact and per-policy merges)
+and runs on a virtual mesh of n shards on the tables' device
+(``core/vmesh.py``): ``_DistributedExecutor`` walks the same tree on every
+shard and calls the engine's collectives (engine.py). Without shards,
+``_LocalExecutor`` walks it on one device. The reference's ``jax.jit``
+becomes an eager callable, held with its physical plan in the bounded LRU
+plan cache.
 
 The cost model, in equivalent passes over the input rows:
 
@@ -43,14 +44,28 @@ import torch
 from repro_torch.analytics import physical as PH
 from repro_torch.analytics import plan as L
 from repro_torch.analytics.columnar import (DENSE_GROUP_LIMIT, Table,
+                                            finalize_stacked,
                                             group_aggregate, pkfk_join,
                                             pkfk_join_kernel,
                                             segment_distinct, segment_median,
-                                            segment_quantile)
-from repro_torch.analytics.engine import routing_capacity
-from repro_torch.analytics.plan import is_holistic, parse_quantile
+                                            segment_order_stat,
+                                            segment_quantile,
+                                            stacked_columns,
+                                            stacked_group_sums)
+from repro_torch.analytics.engine import (compact_routed_rows, gather_rows,
+                                          interleave_group_median,
+                                          interleave_group_sums,
+                                          merge_partial_table,
+                                          placed_group_median,
+                                          pushdown_group_sums,
+                                          radix_route_table_rows,
+                                          replicated_group_median,
+                                          route_owner, route_table_rows,
+                                          routing_capacity)
+from repro_torch.analytics.plan import (holistic_selector, is_holistic,
+                                        parse_quantile)
 from repro_torch.core.config import PlacementPolicy
-from repro_torch.kernels.common import kernel_mode
+from repro_torch.core.vmesh import Communicator, VirtualMesh, shard_rows
 
 
 # ---------------------------------------------------------------------------
@@ -60,9 +75,9 @@ from repro_torch.kernels.common import kernel_mode
 class ExecutionContext:
     """Everything the planner may vary without touching the logical plan.
 
-    The reference's fields, with its jax ``Mesh`` replaced by
-    ``n_shards``: None runs on one device, an int lowers for that many
-    shards under ``policy`` (execution of such a plan is the next slice).
+    The reference's fields, with its jax ``Mesh`` and ``axis`` replaced by
+    ``n_shards``: None runs on one device, an int runs the plan on a
+    virtual mesh of that many shards under ``policy``.
     ``executor``: "xla" forces segment ops, "kernel" the fused sweeps,
     "cost" lets the cost model choose. ``join``: None = cost-based, or
     force "sorted" / "kernel". ``mode``: kernel mode ("auto" | "cuda" |
@@ -227,21 +242,17 @@ def choose_aggregate(n_rows: int, n_groups: int, n_cols: int,
     return min(costs, key=costs.get)
 
 
-def choose_join(n_probe: int, n_build: int, ctx: ExecutionContext,
-                device: Optional[torch.device] = None) -> str:
+def choose_join(n_probe: int, n_build: int, ctx: ExecutionContext) -> str:
     """"sorted" (searchsorted gather) vs "kernel" (join_probe probe).
 
-    The reference takes the kernel only when compiled Pallas runs it; the
-    port takes it, under the same size thresholds, when the kernel mode
-    resolves to the CUDA kernel for the tables' ``device``. On the CPU the
-    probe would be the plain O(n_probe * n_build / P) compare, so the
-    sorted gather stays."""
-    if ctx.join is not None:
-        return ctx.join
-    if (kernel_mode(ctx.mode, device) == "cuda" and ctx.executor != "xla"
-            and n_probe >= (1 << 14) and n_build >= 512):
-        return "kernel"
-    return "sorted"
+    The reference takes the kernel only where the MXU runs it. On the H100
+    the kernel is a nested-loop compare per partition: at q3's SF1 join it
+    takes 58.9 ms, while q3's whole plan on the sorted gather takes 2.0 ms
+    (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``, PERF.md). So the
+    port takes "sorted" unless ``ctx.join`` forces "kernel"; a hashed or
+    sorted probe kernel would have to be priced here again."""
+    del n_probe, n_build
+    return ctx.join or "sorted"
 
 
 def dist_join_costs(n_probe: int, n_build: int, n_shards: int,
@@ -318,6 +329,16 @@ def choose_dist_topk(n_groups: int, k: int, n_shards: int,
 def stacked_width(aggs: Tuple[Tuple[str, Tuple[str, str]], ...]) -> int:
     """Width of the stacked values matrix: weights + distinct sum/avg."""
     return 1 + len({c for _, (op, c) in aggs if op in ("sum", "avg")})
+
+
+def _stacked_src(aggs) -> list:
+    """Distinct sum/avg source columns, insertion order: the static twin
+    of the ``src`` list stacked_columns derives from data."""
+    src: list = []
+    for _name, (op, c) in aggs:
+        if op in ("sum", "avg") and c not in src:
+            src.append(c)
+    return src
 
 
 @dataclass(frozen=True)
@@ -526,8 +547,7 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def lower(plan: L.LogicalPlan, ctx: ExecutionContext,
           rows: Dict[str, int], profile: Optional[CostProfile] = None,
           n_shards: Optional[int] = None,
-          observed=None,
-          device: Optional[torch.device] = None) -> PH.PhysicalPlan:
+          observed=None) -> PH.PhysicalPlan:
     """Cost-driven lowering pass: resolve every strategy decision into an
     explicit physical tree, then let the movement rewrites (push-down,
     route-once, compaction — see module docstring) improve it.
@@ -540,16 +560,14 @@ def lower(plan: L.LogicalPlan, ctx: ExecutionContext,
     (probe_alive, build_alive) | None`` lookup (telemetry's recorded
     GLOBAL alive rows) consulted ONLY by the distributed-join cost choice
     — estimates and buffer shapes are untouched, so a re-lowering with
-    unchanged decisions is structurally identical to the original.
-    ``device`` is where the tables lie; the local join choice reads it."""
+    unchanged decisions is structurally identical to the original."""
     profile = profile or current_cost_profile()
     if n_shards is None:
         distributed = ctx.n_shards is not None
         n_shards = ctx.n_shards if distributed else 1
     else:
         distributed = True
-    lo = _Lowering(ctx, rows, profile, n_shards, distributed, observed,
-                   device)
+    lo = _Lowering(ctx, rows, profile, n_shards, distributed, observed)
     root = lo.node(plan.root)
     return PH.PhysicalPlan(root, plan.outputs,
                            n_shards if distributed else 1)
@@ -558,10 +576,8 @@ def lower(plan: L.LogicalPlan, ctx: ExecutionContext,
 class _Lowering:
     """One lower() pass: shape propagation + strategy choice per node."""
 
-    def __init__(self, ctx, rows, profile, n, distributed, observed=None,
-                 device=None):
+    def __init__(self, ctx, rows, profile, n, distributed, observed=None):
         self.ctx = ctx
-        self.device = device
         self.rows = rows
         self.profile = profile
         self.n = n
@@ -674,8 +690,7 @@ class _Lowering:
         probe = self.node(node.probe)
         build = self.node(node.build)
         if not self.distributed:
-            strategy = choose_join(probe.rows, build.rows, self.ctx,
-                                   self.device)
+            strategy = choose_join(probe.rows, build.rows, self.ctx)
             # morsel-splittable probe phase: the sorted-index gather is
             # per-probe-row deterministic against a fixed build index, so
             # the serving scheduler may slice the probe side into
@@ -1021,6 +1036,258 @@ class _LocalExecutor:
         return out
 
 
+class _DistributedExecutor(_LocalExecutor):
+    """Placement-policy walker: runs on every shard of a virtual mesh.
+    Tables arrive row-sharded (zero-padded, with a ``_valid`` weight
+    column folded into each Scan's mask); Exchange nodes execute the
+    engine collectives (broadcast all-gathers, hash routes through
+    route_table_rows or radix_route_table_rows), Compact nodes re-compact
+    routed buffers, and PAggregate's ``merge`` field names the per-policy
+    combine. The merged group tables (and so every node after an
+    aggregation) are replicated.
+
+    Two Exchange kinds execute FUSED inside their consuming aggregate:
+    "gather" (the stacked (keys, vals) matrix is gathered, not the whole
+    table) and the partial-sums hash exchange of a pushed-down aggregate
+    (pushdown_group_sums routes and merges in one primitive)."""
+
+    def __init__(self, tables, ctx: ExecutionContext, comm: Communicator,
+                 profile: Optional[CostProfile] = None):
+        super().__init__(tables, ctx, {}, profile)
+        self.comm = comm
+        self.n = comm.n
+
+    def _pscan(self, node: PH.PScan) -> Table:
+        cols = {c: a for c, a in self.tables[node.table].items()
+                if c != "_valid"}
+        return Table(cols, self.tables[node.table]["_valid"])
+
+    def _exchange(self, node: PH.Exchange) -> Table:
+        if node.kind in ("gather", "allreduce", "reduce_scatter"):
+            raise TypeError(f"{node.kind} Exchange executes fused in "
+                            f"PAggregate")
+        child = self.run(node.child)
+        if node.kind == "broadcast":
+            cols = gather_rows(child.columns, self.comm)
+            mask = (None if child.mask is None
+                    else gather_rows(child.mask, self.comm))
+            return Table(cols, mask)
+        # hash: all-to-all route the table's rows to their key's owner.
+        # Routed padding rows carry weight 0 and key -1, so they never match
+        # a real join key; routing overflow goes to the plan's _overflow.
+        keys = child.col(node.key).to(torch.int32)
+        w0 = child.weights()
+        owner = route_owner(keys, w0 > 0, self.n, node.method)
+        if node.impl == "radix":
+            cols, w, ovf = radix_route_table_rows(
+                child.columns, w0, owner, self.n, node.capacity, self.comm,
+                mode=self.ctx.mode)
+        else:
+            cols, w, ovf = route_table_rows(child.columns, w0, owner,
+                                            self.n, node.capacity, self.comm)
+        self.overflow = self.overflow + self.comm.psum(ovf).to(torch.int32)
+        return Table(cols, w)
+
+    def _compact(self, node: PH.Compact) -> Table:
+        t = self.run(node.child)
+        cols, w, ovf = compact_routed_rows(t.columns, t.weights(),
+                                           node.capacity)
+        self.overflow = self.overflow + self.comm.psum(ovf).to(torch.int32)
+        return Table(cols, w)
+
+    def _ptopk(self, node: PH.PTopK) -> Dict[str, torch.Tensor]:
+        if node.dist != "candidates":
+            # "replicated": select on the merged (replicated) group table
+            return super()._ptopk(node)
+        # candidates: each shard owns a contiguous slot range of the group
+        # table (ceil(G/n) slots), selects its local top-k with GLOBAL slot
+        # indices, and only the k candidate pairs per shard converge. Equal
+        # bits to "replicated": within a shard top_k breaks ties by lowest
+        # index, the rank-order all_gather keeps ascending global index
+        # among equal values across shards, and the final top_k over the
+        # k*n candidates breaks ties by candidate position.
+        g = self.run(node.child.child)
+        vals = g[node.col]
+        G = vals.shape[0]
+        slots = (G + (-G % self.n)) // self.n
+        owned = (torch.arange(G, device=vals.device) // slots
+                 ) == self.comm.axis_index()
+        local_vals, local_idx = top_k(torch.where(owned, vals, -torch.inf),
+                                      node.k)
+        cand_vals = self.comm.all_gather(local_vals)
+        cand_idx = self.comm.all_gather(local_idx)
+        top_vals, pos = top_k(cand_vals, node.k)
+        return {node.col: top_vals, node.index_name: cand_idx[pos.long()]}
+
+    def _ppartialaggregate(self, node: PH.PPartialAggregate):
+        """Local (n_groups, C) stacked partial sums: the below-the-exchange
+        half of push-down and of the FT/LA partial-table merges."""
+        t = self.run(node.child)
+        keys, vals, _src = stacked_columns(t, node.key, node.n_groups,
+                                           dict(node.aggs))
+        return self._stacked(keys, vals, node.n_groups, node.layout)
+
+    def _table_source(self, node: PH.PNode) -> PH.PNode:
+        """The table-producing node under an aggregate's movement/partial
+        wrappers: order statistics must see the records exactly once,
+        before any exchange."""
+        while isinstance(node, (PH.Exchange, PH.PPartialAggregate)):
+            node = node.child
+        return node
+
+    def _paggregate(self, node: PH.PAggregate) -> Dict[str, torch.Tensor]:
+        if node.key is None:
+            return self._dist_scalar_aggregate(node, self.run(node.child))
+        t = self.run(self._table_source(node.child))
+        G = node.n_groups
+        dist_aggs = tuple((nm, oc) for nm, oc in node.aggs
+                          if not is_holistic(oc[0]))
+        med_out, med_counts, med_ovf = self._dist_medians(node, t, G)
+        if not dist_aggs:
+            # holistic-only: counts come from the selection path
+            out = dict(med_out)
+            out["_count"] = med_counts
+            out["_overflow"] = med_ovf
+            self.overflow = self.overflow + med_ovf
+            return out
+        sums, overflow = self._merged_sums(node, t, G, dist_aggs)
+        out = finalize_stacked(dict(dist_aggs), _stacked_src(dist_aggs),
+                               sums, self._order_stat_fn(t, node, G))
+        out.update(med_out)
+        out["_overflow"] = overflow.to(torch.int32) + med_ovf
+        self.overflow = self.overflow + out["_overflow"]
+        return out
+
+    def _merged_sums(self, node: PH.PAggregate, t: Table, G: int,
+                     dist_aggs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The distributive stacked-sums table under ``node.merge``."""
+        comm, n = self.comm, self.n
+        merge = node.merge
+        if merge in ("psum", "reduce_scatter"):
+            # the child is the fused allreduce/reduce_scatter Exchange; the
+            # partial table comes from BELOW it
+            partial, ovf = self.run(node.child.child)
+            policy = (PlacementPolicy.FIRST_TOUCH if merge == "psum"
+                      else PlacementPolicy.LOCAL_ALLOC)
+            return (merge_partial_table(partial, policy, comm, n),
+                    comm.psum(ovf))
+        if merge == "pushdown":
+            partial, ovf = self.run(node.child.child)
+            sums, route_ovf = pushdown_group_sums(
+                partial, G, comm, n,
+                capacity_factor=self.ctx.capacity_factor,
+                capacity=node.child.capacity)
+            return sums, comm.psum(ovf) + route_ovf
+        if merge == "placed":
+            # route-once: every group's rows are co-located, so the
+            # per-shard tables are DISJOINT and the psum is exact
+            keys, vals, _ = stacked_columns(t, node.key, G, dict(dist_aggs))
+            sums, ovf = self._stacked(keys, vals, G, node.layout)
+            return comm.psum(sums), comm.psum(ovf)
+        if merge == "owner":
+            keys, vals, _ = stacked_columns(t, node.key, G, dict(dist_aggs))
+            agg_fn = functools.partial(self._stacked, layout=node.layout)
+            # the Exchange node's capacity drives the routing: execution
+            # cannot drift from the rendered physical plan
+            return interleave_group_sums(
+                keys, vals, G, comm, n, agg_fn,
+                capacity_factor=self.ctx.capacity_factor,
+                capacity=node.child.capacity)
+        if merge == "gather":
+            keys, vals, _ = stacked_columns(t, node.key, G, dict(dist_aggs))
+            ak, av = gather_rows((keys, vals), comm)
+            return self._stacked(ak, av, G, node.layout)
+        raise ValueError(f"unknown aggregate merge {merge!r}")
+
+    def _stacked(self, keys, vals, n_groups, layout):
+        return stacked_group_sums(
+            keys, vals, n_groups, layout=layout, mode=self.ctx.mode,
+            n_partitions=self.ctx.n_partitions, capacity_factor=self.agg_cf)
+
+    def _order_stat_fn(self, t: Table, node: PH.PAggregate, G: int):
+        keys = torch.clamp(t.col(node.key), 0, G - 1).to(torch.int32)
+
+        def order_stat(op, col):
+            # local segment op, then a cross-shard reduction
+            local = segment_order_stat(t, keys, G, op, col)
+            return (self.comm.pmax(local) if op == "max"
+                    else self.comm.pmin(local))
+
+        return order_stat
+
+    def _dist_medians(self, node: PH.PAggregate, t: Table, G: int):
+        """Per-policy lowering of an Aggregate's holistic aggs: "replicate"
+        gathers the records, "route" sends each group's records to its
+        owner and selects there, "placed" selects on the shard that
+        already holds the group. Returns ({name: (G,) stats},
+        counts-or-None, overflow), all replicated in natural group
+        order."""
+        comm, n = self.comm, self.n
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        med_aggs = tuple((nm, oc) for nm, oc in node.aggs
+                         if is_holistic(oc[0]))
+        if not med_aggs:
+            return {}, None, zero
+        keys = torch.clamp(t.col(node.key), 0, G - 1).to(torch.int32)
+        w = t.weights()
+        cols = {name: t.col(colname).to(torch.float32)
+                for name, (_op, colname) in med_aggs}
+        ranks = {name: holistic_selector(op)
+                 for name, (op, _c) in med_aggs}          # None = median
+        if node.med_strategy == "route":
+            meds, counts, ovf = interleave_group_median(
+                keys, cols, w, G, comm, n,
+                capacity_factor=self.ctx.capacity_factor, ranks=ranks)
+            return meds, counts, ovf.to(torch.int32)
+        if node.med_strategy == "placed":
+            meds, counts = placed_group_median(keys, cols, w, G, comm,
+                                               ranks=ranks)
+            return meds, counts, zero
+        meds, counts = replicated_group_median(keys, cols, w, G, comm,
+                                               ranks=ranks)
+        return meds, counts, zero
+
+    def _dist_scalar_aggregate(self, node: PH.PAggregate,
+                               t: Table) -> Dict[str, torch.Tensor]:
+        """Global aggregate: merge the SUMS across shards (an average of
+        per-shard averages would weight shards, not rows)."""
+        comm = self.comm
+        w = t.weights()
+        cnt = comm.psum(w.sum())[None]
+        out: Dict[str, torch.Tensor] = {}
+        med_cols: Dict[str, torch.Tensor] = {}
+        med_ranks: Dict[str, object] = {}
+        for name, (op, col) in node.aggs:
+            if op == "count":
+                out[name] = cnt
+                continue
+            v = t.col(col).to(torch.float32)
+            if op in ("sum", "avg"):
+                s = comm.psum((v * w).sum())[None]
+                out[name] = (s if op == "sum"
+                             else s / torch.clamp(cnt, min=1.0))
+            elif op == "max":
+                out[name] = comm.pmax(
+                    torch.where(w > 0, v, -torch.inf).max())[None]
+            elif op == "min":
+                out[name] = comm.pmin(
+                    torch.where(w > 0, v, torch.inf).min())[None]
+            elif is_holistic(op):
+                med_cols[name] = v       # batched below: gather rows once
+                med_ranks[name] = holistic_selector(op)
+            else:
+                raise ValueError(f"unknown agg op {op!r}")
+        if med_cols:
+            meds, _ = replicated_group_median(
+                torch.zeros_like(w, dtype=torch.int32), med_cols, w, 1,
+                comm, ranks=med_ranks)
+            out.update(meds)
+        out["_count"] = cnt
+        out["_overflow"] = torch.zeros((), dtype=torch.int32,
+                                       device=w.device)
+        return out
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -1041,7 +1308,7 @@ def _signature(tables) -> Tuple:
 def table_signature(tables) -> Tuple:
     """Shape signature of a {table: {column: tensor}} mapping: the axis of
     the plan-cache key that identifies structurally identical data (the
-    device is part of it: CPU and CUDA tables lower differently)."""
+    device is part of it, so CPU and CUDA tables keep separate entries)."""
     return _signature(tables)
 
 
@@ -1050,13 +1317,39 @@ def _true_rows(tables) -> Dict[str, int]:
             for t, cols in tables.items()}
 
 
+def _run_distributed(phys: PH.PhysicalPlan, ctx: ExecutionContext, profile,
+                     tables):
+    """Run ``phys`` on a virtual mesh of ``ctx.n_shards`` shards on the
+    tables' device. Each table is zero-padded to a multiple of n rows and
+    gets a ``_valid`` weight column; shard i takes the i-th contiguous
+    block of rows (``shard_map``'s ``P(axis)``). The outputs are
+    replicated, so shard 0's are returned."""
+    n = ctx.n_shards
+    rows = _true_rows(tables)
+    padded = {}
+    for t, cols in tables.items():
+        r = rows[t]
+        pad = -r % n
+        pcols = {c: torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+                 if pad else a for c, a in cols.items()}
+        dev = next(iter(cols.values())).device
+        pcols["_valid"] = (torch.arange(r + pad, device=dev) < r
+                           ).to(torch.float32)
+        padded[t] = pcols
+
+    def local_fn(comm, local_tables):
+        return _DistributedExecutor(local_tables, ctx, comm,
+                                    profile).execute(phys)
+
+    mesh = VirtualMesh(n, _device_of(tables))
+    return mesh.run(local_fn, shard_rows(padded, n))[0]
+
+
 def _run_plan(phys: PH.PhysicalPlan, ctx: ExecutionContext, profile,
               tables, indexes):
     if ctx.n_shards is not None:
-        raise NotImplementedError(
-            "the distributed placement backend (engine.py and the "
-            "distributed executor) is the next slice of the port; only "
-            "lowering and explain take n_shards here")
+        # full-table join indexes do not survive the row padding
+        return _run_distributed(phys, ctx, profile, tables)
     return _LocalExecutor(tables, ctx, indexes, profile).execute(phys)
 
 
@@ -1100,8 +1393,7 @@ def compile_plan(plan: L.LogicalPlan, tables,
     entry = _PLAN_CACHE.get(key)
     if entry is None:
         L.validate(plan)     # fail fast (and once)
-        phys = lower(plan, ctx, _true_rows(tables), profile,
-                     device=_device_of(tables))
+        phys = lower(plan, ctx, _true_rows(tables), profile)
         entry = (phys, functools.partial(_run_plan, phys, ctx, profile))
         _PLAN_CACHE.put(key, entry)
     phys, fn = entry
@@ -1136,7 +1428,7 @@ def explain(plan: L.LogicalPlan, tables,
     produces the executed physical plan, so explain can never drift from
     execution."""
     ctx = ctx or ExecutionContext()
-    phys = lower(plan, ctx, _true_rows(tables), device=_device_of(tables))
+    phys = lower(plan, ctx, _true_rows(tables))
     n = phys.n_shards
     decisions: List[Decision] = []
     seen = set()
@@ -1236,5 +1528,5 @@ def explain_physical(plan: L.LogicalPlan, tables,
     materializing devices."""
     ctx = ctx or ExecutionContext()
     return PH.describe(lower(plan, ctx, _true_rows(tables),
-                             n_shards=n_shards, device=_device_of(tables)))
+                             n_shards=n_shards))
 

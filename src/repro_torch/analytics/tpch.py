@@ -18,23 +18,13 @@ import torch
 
 from repro_torch.analytics import planner
 from repro_torch.analytics.plan import LogicalPlan, TableRows, col, scan
+from repro_torch.core.config import resolve_device
 
 N_NATION, N_REGION = 25, 5
 N_SEGMENTS = 5
 DATE0, DATE1 = 0, 2557            # ~7 years of day numbers
 
 Tables = Mapping[str, Mapping[str, torch.Tensor]]
-
-
-def resolve_device(device: Union[None, str, torch.device] = None
-                   ) -> torch.device:
-    """``device``, or the CUDA device when None. Raises when the result is
-    a CUDA device and there is none: pass ``device="cpu"`` for the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
 
 
 @dataclass(frozen=True)

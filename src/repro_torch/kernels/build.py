@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"hash_aggregate": "hash_aggregate.cu",
-           "join_probe": "join_probe.cu"}
+           "join_probe": "join_probe.cu",
+           "radix_partition": "radix_partition.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

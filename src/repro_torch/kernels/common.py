@@ -15,6 +15,7 @@ under "auto" launches the kernel or raises, it never falls back.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -40,12 +41,21 @@ def kernel_mode(mode: Optional[str] = None,
 # Launch counts of the hand-written kernels. Each wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels (chip_smoke.py zeroes them around the main path).
-LAUNCHES = {"hash_aggregate_multi": 0, "join_probe": 0}
+# The shards of a virtual mesh launch from threads, hence the lock.
+LAUNCHES = {"hash_aggregate_multi": 0, "join_probe": 0,
+            "block_histograms": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def check_input(t: torch.Tensor, name: str, dtype: torch.dtype,

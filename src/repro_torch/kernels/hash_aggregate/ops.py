@@ -12,8 +12,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (LAUNCHES, check_input, kernel_mode,
-                                        stream_handle)
+from repro_torch.kernels.common import (check_input, count_launch,
+                                        kernel_mode, stream_handle)
 from repro_torch.kernels.hash_aggregate.ref import hash_aggregate_multi_ref
 
 TABLE_FLOATS = 24_576     # shared-memory table budget of one block (96 KB)
@@ -76,7 +76,7 @@ def _launch(ids: torch.Tensor, vals: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"hash_aggregate_multi launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["hash_aggregate_multi"] += 1
+    count_launch("hash_aggregate_multi")
     return out
 
 

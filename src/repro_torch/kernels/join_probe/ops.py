@@ -12,8 +12,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (LAUNCHES, check_input, kernel_mode,
-                                        stream_handle)
+from repro_torch.kernels.common import (check_input, count_launch,
+                                        kernel_mode, stream_handle)
 from repro_torch.kernels.join_probe.ref import join_probe_ref
 
 
@@ -50,7 +50,7 @@ def _launch(build_keys: torch.Tensor, build_vals: torch.Tensor,
                 P, Bk, Pk, stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"join_probe launch failed: CUDA error {rc}")
-    LAUNCHES["join_probe"] += 1
+    count_launch("join_probe")
     return vals, found
 
 

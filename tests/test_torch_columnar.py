@@ -215,6 +215,22 @@ def test_segment_sum_drops_out_of_range_ids_like_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("shape", [(5000,), (5000, 3), (5000, 2, 2), (0, 3)])
+def test_segment_sum_matches_jax_on_stacked_columns(shape):
+    """The sort + per-segment reduction route (the same bits on every run,
+    no float atomics) against jax.ops.segment_sum, trailing dims and an
+    empty input included; f32 sums in another order."""
+    rng = np.random.RandomState(len(shape))
+    ids = rng.randint(-3, 70, shape[0]).astype(np.int64)
+    data = (rng.randn(*shape) * 1e3).astype(np.float32)
+    want = jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(ids),
+                               num_segments=64)
+    got = TC.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), 64)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-2)
+
+
 def test_top_k_breaks_ties_by_lowest_index_like_lax():
     x = np.array([3, 7, 7, 1, 7, 3, 9, 3, 0, 7], np.float32)
     for k in (1, 3, 5, 8, 10):

@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analytics.columnar import segment_sum
 from repro_torch.kernels import common
 from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
 from repro_torch.kernels.join_probe import join_probe
+from repro_torch.kernels.radix_partition.ops import (block_histograms,
+                                                     padded_bin_counts)
+from repro_torch.kernels.radix_partition.ref import block_histograms_ref
 
 
 @pytest.fixture
@@ -57,3 +61,41 @@ def test_cuda_join_probe_matches_plain(dev, P, Bk, Pk):
     want = join_probe(*(torch.from_numpy(x) for x in (bk, bv, pk)))
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", [2, 8, 64, 256])
+@pytest.mark.parametrize("shift", [0, 8, 16, 24])
+@pytest.mark.parametrize("block", [128, 256, 1024])
+def test_cuda_block_histograms_equal_plain(dev, n_bins, shift, block):
+    rng = np.random.RandomState(n_bins + shift + block)
+    keys = rng.randint(-(1 << 31), (1 << 31) - 1, block * 37)
+    keys = keys.astype(np.int32)
+    keys[::5] = -1                             # the routing padding key
+    k = torch.from_numpy(keys).to(dev)
+    before = common.LAUNCHES["block_histograms"]
+    got = block_histograms(k, n_bins=n_bins, shift=shift, block=block)
+    assert common.LAUNCHES["block_histograms"] == before + 1
+    want = block_histograms_ref(k, n_bins=n_bins, shift=shift, block=block)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    counts = padded_bin_counts(k[:block * 3 + 17], n_bins=n_bins,
+                               shift=shift, block=block)
+    digits = (keys[:block * 3 + 17].view(np.uint32) >> shift) & (n_bins - 1)
+    np.testing.assert_array_equal(counts.cpu().numpy(),
+                                  np.bincount(digits, minlength=n_bins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups,width", [(6_000_000, 6, 1),
+                                            (6_000_000, 1_500_000, 2)])
+def test_cuda_segment_sum_is_bit_stable(dev, n, groups, width):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, groups, (n,), device=dev, generator=gen)
+    vals = torch.rand((n, width), device=dev, generator=gen) * 1e4
+    a = segment_sum(vals, ids, groups)
+    b = segment_sum(vals, ids, groups)
+    assert torch.equal(a, b)
+    want = torch.zeros((groups, width), dtype=torch.float64, device=dev
+                       ).index_add_(0, ids, vals.double())
+    np.testing.assert_allclose(a.double().cpu().numpy(),
+                               want.cpu().numpy(), rtol=1e-5)
