@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-main paths give it, and drives two paths through the port's entry points:
+main paths give it, and drives three paths through the port's entry
+points:
 
   * the single-device path: all seven TPC-H queries at SF1 through
     ``repro_torch.analytics.tpch.run_query`` under the kernel, plain and
@@ -19,7 +20,15 @@ main paths give it, and drives two paths through the port's entry points:
     single-device plain path and float64 (argsort == radix and candidates
     TopK == replicated bit for bit), then W1/W2/W3 (``engine.dist_median``
     / ``dist_count`` / ``dist_hash_join``) at the paper's sizes under each
-    policy.
+    policy;
+  * the LM serving path: recurrentgemma-2b at full width (26 layers,
+    d_model 2560, 2.66B fp32 parameters drawn from a seeded generator on
+    the card): one prefill of 2 x 4096 tokens through
+    ``repro_torch.models.lm.LMModel.prefill`` (8 ``flash_attention`` and
+    18 ``rglru_scan`` launches), its logits against the plain versions'
+    prefill, 64 decode steps against the forward pass, and 32 requests
+    served through ``repro_torch.launch.serve.serve``, the launcher's
+    entry function.
 
 The kernel launch counts are zeroed just before each path and read just
 after it; a kernel of a path that never launched fails the run. It also
@@ -883,6 +892,358 @@ def w_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serving recurrentgemma-2b at full width (prefill + decode waves)
+# ---------------------------------------------------------------------------
+LM_ARCH = "recurrentgemma-2b"
+LM_B, LM_S = 2, 4096            # prefill: twice the 2048 window
+LM_DECODE = 64                  # decode-vs-forward tokens
+SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "32", "--wave-slots", "8",
+              "--max-new", "16", "--seed", str(SEED)]
+# The kernels and their plain versions sum the same float32 products in
+# other orders: 1e-5 absolute and relative. Last-token logits after 26
+# layers with kernels vs with plain versions: 1e-4. Decode against forward
+# (float32 cache): 2e-3, the reference's own bound for that parity.
+KERNEL_TOL, PREFILL_TOL, DECODE_TOL = 1e-5, 1e-4, 2e-3
+
+
+def held(got, want, tol, label):
+    """Raise unless |got - want| <= tol + tol * |want| everywhere. Returns
+    the largest absolute error and the largest share of that limit used."""
+    import torch
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)}, want "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: not finite")
+    if got.numel() == 0:
+        return 0.0, 0.0
+    err = (got - want).abs()
+    worst = float(err.max())
+    share = float((err / (tol + tol * want.abs())).max())
+    if share > 1.0:
+        raise AssertionError(f"{label}: off by {worst!r}, {share!r} of the "
+                             f"limit {tol} (absolute and relative)")
+    return worst, share
+
+
+def attention_pairs(Sq, Skv, q_offset, window):
+    """(query, key) pairs the causal / window mask leaves visible, per
+    (batch, head)."""
+    import torch
+    qpos = q_offset + torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(qpos, max=Skv - 1)
+    lo = (torch.clamp(qpos - window + 1, min=0) if window is not None
+          else torch.zeros_like(qpos))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def check_attention(q, k, v, label, window=None, q_offset=0, scale=None):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_chunked
+    got = flash_attention(q, k, v, window=window, q_offset=q_offset,
+                          scale=scale, mode="cuda")
+    want = attention_chunked(q, k, v, window=window, q_offset=q_offset,
+                             scale=scale)
+    err, rel = held(got, want, KERNEL_TOL, f"flash_attention {label}")
+    log(f"flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
+        f"window {window} q_offset {q_offset}: max_abs_err {err!r} "
+        f"limit share {rel!r}")
+    return got, err
+
+
+def check_scan(a, b, label, chunk=None):
+    """Through the dispatching wrapper; a chunk other than the kernel's own
+    goes to the launcher, which alone takes one."""
+    from repro_torch.kernels.rglru_scan.ops import CHUNK, _launch, linear_scan
+    from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
+    if chunk is None:
+        got = linear_scan(a, b, mode="cuda")
+    else:
+        got = _launch(a, b, chunk=chunk)
+    want = linear_scan_sequential(a, b)
+    err, rel = held(got, want, KERNEL_TOL, f"rglru_scan {label}")
+    log(f"rglru_scan {label}: {tuple(a.shape)} chunk {chunk or CHUNK}: "
+        f"max_abs_err {err!r} limit share {rel!r}")
+    return err
+
+
+def lm_kernel_edges(dev):
+    """The two kernels against their plain versions off the main path's
+    shapes: other head dims, GQA 7:1, offsets, ragged tiles, rows that see
+    no key, scan lengths and chunks that do not divide."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    for D, Hq, Hkv, S, Skv, window, off, label in [
+            (64, 14, 2, 1000, 1000, None, 0,
+             "qwen2-0.5b heads (GQA 7:1, D 64)"),
+            (128, 16, 8, 777, 777, 300, 0,
+             "D 128, window 300, S not a tile multiple"),
+            (256, 10, 1, 333, 4429, 2048, 4096,
+             "q_offset 4096 (a chunk of a longer prefill)"),
+            (64, 4, 4, 200, 100, 20, 500,
+             "rows that see no key (keys 0-99, rows from 500, window 20)")]:
+        q, k, v = rnd(2, S, Hq, D), rnd(2, Skv, Hkv, D), rnd(2, Skv, Hkv, D)
+        got, _ = check_attention(q, k, v, label, window=window,
+                                 q_offset=off)
+        hidden = window is not None and Skv <= off - window
+        if hidden and not torch.equal(got, torch.zeros_like(got)):
+            raise AssertionError("flash_attention: a row that sees no key "
+                                 "is not 0")
+    for shape, chunk, label in [((2, 4097, 2560), None, "S not a chunk "
+                                 "multiple"), ((1, 1, 300), None, "S 1"),
+                                ((3, 1000, 130), 7, "chunk 7")]:
+        a = torch.rand(shape, device=dev, generator=gen) * 0.98 + 0.01
+        check_scan(a, rnd(*shape), label, chunk)
+
+
+def device_breakdown(fn):
+    """Device ms of one warm call of ``fn`` by kind of kernel (self CUDA
+    time under torch.profiler), beside its wall ms and the count of device
+    operations it ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds, ops = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ops += e.count
+        name = e.key.lower()
+        kind = ("flash_attention" if "fa_fwd" in name else
+                "rglru_scan" if "scan_" in name else
+                "matmul" if any(w in name for w in ("gemm", "cutlass",
+                                                    "xmma", "sm90")) else
+                "other")
+        kinds[kind] = kinds.get(kind, 0.0) + getattr(
+            e, "self_device_time_total", 0) / 1e3
+    busy = sum(kinds.values())
+    return dict(wall_ms=wall, device_busy_ms=busy or "not measured",
+                idle_share=(1 - busy / wall) if busy else "not measured",
+                device_ops=ops, device_ms_by_kind=kinds)
+
+
+def lm_phase(dev):
+    """Serve recurrentgemma-2b at full width: prefill through
+    ``LMModel.prefill`` with the kernels (launch counts read around it),
+    the kernels against their plain versions at the prefill's own inputs
+    and on edge cases, prefill logits against the plain path, decode
+    against forward, the serving launcher's entry function, and the
+    kernels' times. Returns the kernels' records."""
+    import gc
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.core.params import param_count
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_chunked
+    from repro_torch.kernels.rglru_scan.ops import linear_scan
+    from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models.lm import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products, as the
+    torch.backends.cudnn.allow_tf32 = False         # reference's
+    arch = get_arch(LM_ARCH)
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    plan = model.plan
+    n_attn = plan["n_super"] * plan["pattern"].count("local_attn") + \
+        plan["tail"].count("local_attn")
+    n_rglru = arch.n_layers - n_attn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(seed=SEED)
+    torch.cuda.synchronize()
+    n_params = param_count(model.schema())
+    log(f"LM: {LM_ARCH} at full width ({arch.n_layers} layers, d_model "
+        f"{arch.d_model}, {arch.n_heads}/{arch.n_kv_heads} heads x "
+        f"{arch.resolved_head_dim}, window {arch.hybrid.window}, vocab "
+        f"{arch.vocab_size}): {n_params} fp32 parameters "
+        f"({n_params * 4 / 2**30:.3f} GiB) drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s, seed {SEED}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(1, arch.vocab_size, (LM_B, LM_S), device=dev,
+                           dtype=torch.int32, generator=gen)
+    batch = {"tokens": tokens}
+
+    # the main path: one prefill, launch counts read around it
+    fa_calls, scan_calls = [], []
+    with torch.no_grad(), capture(attn_mod, "flash_attention", fa_calls), \
+            capture(rglru_mod, "linear_scan", scan_calls):
+        torch.cuda.synchronize()
+        common.reset_launches()                 # just before the path
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)        # just after it
+    first_s = time.perf_counter() - t0
+    log(f"LM prefill B={LM_B} S={LM_S}: first run {first_s:.3f} s, "
+        f"launches {launches}")
+    if (launches["flash_attention"], launches["rglru_scan"]) != (n_attn,
+                                                                n_rglru):
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{launches['flash_attention']} and rglru_scan "
+                             f"{launches['rglru_scan']} times, want "
+                             f"{n_attn} and {n_rglru}")
+    if logits.shape != (LM_B, 1, model.padded.vocab_size):
+        raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+
+    # each kernel against its plain version at the prefill's own inputs
+    (q, k, v), fa_kw = fa_calls[0][0], fa_calls[0][1]
+    a, b = scan_calls[0][0][:2]
+    a, b = a.float().contiguous(), b.float().contiguous()
+    del fa_calls[1:], scan_calls[1:]
+    with torch.no_grad():
+        _, fa_err = check_attention(q, k, v, "prefill inputs (layer 3)",
+                                    window=fa_kw["window"],
+                                    scale=fa_kw["scale"])
+        scan_err = check_scan(a, b, "prefill inputs (layer 1)")
+        lm_kernel_edges(dev)
+
+        # prefill logits with the kernels against the plain versions
+        want, _ = plain.prefill(params, batch)
+        err, rel = held(logits, want, PREFILL_TOL, "prefill logits")
+        log(f"LM prefill logits, kernels vs plain: max_abs_err {err!r}, "
+            f"limit share {rel!r} (|logit| up to "
+            f"{float(want.abs().max())!r})")
+        del want
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prefill_ms = cuda_ms(lambda: model.prefill(params, batch),
+                             reps=WARM_REPS, warmup=1)
+        prefill_peak = torch.cuda.max_memory_allocated()
+        log(f"LM prefill warm: {prefill_ms!r} ms per prefill of "
+            f"{LM_B}x{LM_S} tokens ({LM_B * LM_S / prefill_ms * 1e3:.1f} "
+            f"tokens/s), peak {prefill_peak / 2**30:.3f} GiB")
+        log("LM prefill device time: " + json.dumps(device_breakdown(
+            lambda: model.prefill(params, batch))))
+
+        # decode against forward at full width, float32 cache
+        m32 = LMModel(arch, device=dev, cache_dtype=torch.float32)
+        toks = tokens[:, :LM_DECODE]
+        full, _, _ = m32.forward(params, {"tokens": toks})
+        cache = m32.init_cache(LM_B, LM_DECODE + 1)
+        worst = 0.0
+        for t in range(LM_DECODE):
+            step, cache = m32.decode_step(params, cache,
+                                          {"tokens": toks[:, t:t + 1]})
+            worst = max(worst, held(step[:, 0], full[:, t], DECODE_TOL,
+                                    f"decode step {t} vs forward")[0])
+        log(f"LM decode vs forward: {LM_DECODE} steps, B={LM_B}, float32 "
+            f"cache: max_abs_err {worst!r} (limit {DECODE_TOL})")
+        del full, cache, step
+
+    # the kernels' times at the prefill shape
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    window, scale = fa_kw["window"], fa_kw["scale"]
+    with torch.no_grad():
+        fa_ms = cuda_ms(lambda: flash_attention(q, k, v, window=window,
+                                                scale=scale, mode="cuda"),
+                        reps=10)
+        fa_plain = cuda_ms(lambda: attention_chunked(q, k, v, window=window,
+                                                     scale=scale), reps=2)
+        pos = torch.arange(Sq, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+        sdpa_err = float((sdpa.transpose(1, 2) - attention_chunked(
+            q, k, v, window=window, scale=scale)).abs().max())
+        del sdpa
+        fa_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True),
+            reps=3)
+        pairs = attention_pairs(Sq, Skv, 0, window) * B * Hq
+        fa_bound, fa_by = bound_ms(4 * (2 * B * Sq * Hq * D
+                                        + 2 * B * Skv * Hkv * D),
+                                   4.0 * D * pairs)
+        sc_ms = cuda_ms(lambda: linear_scan(a, b, mode="cuda"), reps=20)
+        sc_plain = cuda_ms(lambda: linear_scan_sequential(a, b), reps=2)
+        sc_bound, sc_by = bound_ms(3 * 4 * a.numel(), 2.0 * a.numel())
+    fa_time = dict(shape=f"prefill local attention: q ({B}, {Sq}, {Hq}, "
+                   f"{D}), k/v ({B}, {Skv}, {Hkv}, {D}) f32, window "
+                   f"{window}; {pairs} visible pairs", ms=fa_ms,
+                   plain_ms=fa_plain, bound_ms=fa_bound, bound_by=fa_by,
+                   library_ms=fa_lib, library_max_abs_err=sdpa_err)
+    sc_time = dict(shape=f"prefill RG-LRU scan: a/b {tuple(a.shape)} f32",
+                   ms=sc_ms, plain_ms=sc_plain, bound_ms=sc_bound,
+                   bound_by=sc_by, library_ms=None)
+    log(f"flash_attention timing {json.dumps(fa_time)}")
+    log(f"rglru_scan timing {json.dumps(sc_time)}")
+    del q, k, v, a, b, qt, kt, vt, mask, fa_calls, scan_calls
+    del params, plain, model, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("LM prefill, kernels, decode vs forward")
+
+    # serving through the launcher's entry function (its own seeded
+    # weights), launch counts read around it: decode runs no kernel
+    args = serve_mod.parse_args(SERVE_ARGV + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    stats, batcher = serve_mod.serve(args)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = dict(common.LAUNCHES)
+    log(f"LM serving {' '.join(SERVE_ARGV)}: {json.dumps(stats)}")
+    if stats["completed"] != args.requests or \
+            stats["tokens_out"] != args.requests * args.max_new:
+        raise AssertionError(f"serving: {stats['completed']} of "
+                             f"{args.requests} requests, "
+                             f"{stats['tokens_out']} tokens")
+    h = batcher.cache["blocks"]["sub0"]["h"]
+    if not bool(torch.isfinite(h).all()):
+        raise AssertionError("serving: the recurrent state is not finite")
+    with torch.no_grad():
+        wave_ms = cuda_ms(lambda: batcher.model.decode_step(
+            batcher.params, batcher.cache, {"tokens": batcher._tokens}),
+            reps=10)
+    with torch.no_grad():
+        log("LM decode wave device time: " + json.dumps(device_breakdown(
+            lambda: batcher.model.decode_step(batcher.params, batcher.cache,
+                                              {"tokens": batcher._tokens}))))
+    log(f"LM serving: {serve_s:.3f} s for {stats['steps']} waves "
+        f"({serve_s / stats['steps'] * 1e3:.3f} ms per wave with weight "
+        f"init and admission), warm decode wave (B={args.wave_slots}) "
+        f"{wave_ms!r} ms, launches {serve_launches}")
+    del batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("LM serving")
+    return [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:89",
+             launches=launches["flash_attention"], max_abs_err=fa_err,
+             **fa_time),
+        dict(name="rglru_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan/kernel.py:52",
+             launches=launches["rglru_scan"], max_abs_err=scan_err,
+             **sc_time),
+    ]
+
+
 def peak_line(label: str) -> None:
     """Print the phase's peak device memory and reset the counter."""
     import torch
@@ -963,6 +1324,7 @@ def main() -> int:
     del data, results
     w_phase(dev)
     peak_line("W1-W3")
+    lm_kernels = lm_phase(dev)
 
     head = agg_times["q18"]
     kernels = [
@@ -982,7 +1344,7 @@ def main() -> int:
              replaces="src/repro/kernels/radix_partition/kernel.py:35",
              launches=dist_launches["block_histograms"], max_abs_err=0.0,
              **radix_time),
-    ]
+    ] + lm_kernels
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

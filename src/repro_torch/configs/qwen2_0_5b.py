@@ -1,0 +1,18 @@
+"""qwen2-0.5b: dense GQA with QKV bias, tied embeddings [arXiv:2407.10671; hf]."""
+from repro_torch.core.config import ArchConfig
+
+ARCH = ArchConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=896,
+    n_heads=14,
+    n_kv_heads=2,
+    head_dim=64,
+    d_ff=4864,
+    vocab_size=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    rope_theta=1_000_000.0,
+    source="arXiv:2407.10671 (Qwen2); hf:Qwen/Qwen2-0.5B",
+)

@@ -43,7 +43,7 @@ def kernel_mode(mode: Optional[str] = None,
 # went through the kernels (chip_smoke.py zeroes them around the main path).
 # The shards of a virtual mesh launch from threads, hence the lock.
 LAUNCHES = {"hash_aggregate_multi": 0, "join_probe": 0,
-            "block_histograms": 0}
+            "block_histograms": 0, "flash_attention": 0, "rglru_scan": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 

@@ -1,0 +1,70 @@
+"""The linear-scan op of the RG-LRU block.
+
+On a CUDA tensor ``linear_scan`` launches the hand-written kernel
+(``csrc/rglru_scan.cu``) or raises; on a CPU tensor it runs the plain
+version (``ref.linear_scan_sequential``). There is no fallback from one
+to the other. The forward is all this slice needs: the op raises if a
+gradient is asked of it (its backward, the same scan reversed, comes with
+training).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (check_input, count_launch,
+                                        kernel_mode, stream_handle)
+from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
+
+CHUNK = 64                        # time steps per chunk of the kernel
+
+
+def _bind():
+    fn = build.library("rglru_scan").rglru_scan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, *,
+            chunk: int = CHUNK) -> torch.Tensor:
+    """Launch the CUDA kernel on contiguous float32 a, b (B, S, D) on one
+    CUDA device. Returns h (B, S, D) float32."""
+    dev = a.device
+    if a.dim() != 3:
+        raise ValueError(f"a must be (B, S, D), got {tuple(a.shape)}")
+    B, S, D = a.shape
+    check_input(a, "a", torch.float32, (B, S, D), dev)
+    check_input(b, "b", torch.float32, (B, S, D), dev)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    nc = -(-S // chunk)
+    prod = torch.empty((B, nc, D), dtype=torch.float32, device=dev)
+    carry = torch.empty((B, nc, D), dtype=torch.float32, device=dev)
+    fn = _bind()
+    with torch.cuda.device(dev):
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), prod.data_ptr(),
+                carry.data_ptr(), B, S, D, chunk, stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan launch failed: CUDA error {rc}")
+    count_launch("rglru_scan")
+    return out
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor,
+                mode: Optional[str] = None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along axis 1, h_{-1} = 0. a, b:
+    (B, S, D) -> float32 h."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise RuntimeError("linear_scan is forward only in this port: run "
+                           "it under torch.no_grad()")
+    if kernel_mode(mode, a.device) == "cuda":
+        return _launch(a.float().contiguous(), b.float().contiguous())
+    return linear_scan_sequential(a, b)

@@ -1,0 +1,314 @@
+"""The decoder LM stack, for the hybrid and dense layer plans.
+
+The counterpart of ``repro.models.lm.LMModel``:
+  dense  (yi-34b, qwen2-0.5b, qwen3-1.7b, granite-3-8b):  GQA + SwiGLU
+  hybrid (recurrentgemma-2b):  (RG-LRU, RG-LRU, local-attn) pattern + GeGLU
+
+Parameters and caches keep the reference's layout (``core.params``): a
+homogeneous stack is stacked along a leading layer axis and a pattern's
+tail is ``tail{i}``. Where the reference scans the stack, the port walks
+it with a Python loop over views. ``prefill`` applies the head to the last
+position only. The other plans (moe, rwkv, audio, vlm, MLA) raise
+``NotImplementedError``: they come with later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.config import (ArchConfig, AttentionKind, PaddedDims,
+                                     RopeKind, resolve_device)
+from repro_torch.core.params import ParamDef, init_params, pdef
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models.layers import rms_norm, swiglu
+
+
+def _stack_schema(schema: Dict[str, Any], n: int) -> Dict[str, Any]:
+    """Prepend a stacked 'layers' dimension to every ParamDef."""
+    out = {}
+    for k, v in schema.items():
+        if isinstance(v, ParamDef):
+            out[k] = pdef((n,) + v.shape, ("layers",) + v.axes, v.init,
+                          v.scale, v.dtype)
+        else:
+            out[k] = _stack_schema(v, n)
+    return out
+
+
+def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked tree, as views."""
+    return {k: (v[i] if isinstance(v, torch.Tensor) else _index(v, i))
+            for k, v in tree.items()}
+
+
+def _restack(per_layer: List[Dict[str, torch.Tensor]],
+             views: List[Dict[str, torch.Tensor]],
+             stacked: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The stacked cache after one decode step: a buffer every layer wrote
+    in place is kept as it is, new per-layer states are stacked anew."""
+    out = {}
+    for name, buf in stacked.items():
+        if all(c[name] is v[name] for c, v in zip(per_layer, views)):
+            out[name] = buf
+        else:
+            out[name] = torch.stack([c[name] for c in per_layer])
+    return out
+
+
+def _mlp_schema(arch: ArchConfig, padded: PaddedDims) -> Dict[str, Any]:
+    d, f = arch.d_model, padded.d_ff
+    return {
+        "w_gate": pdef((d, f), ("embed", "ff"), "scaled"),
+        "w_up": pdef((d, f), ("embed", "ff"), "scaled"),
+        "w_down": pdef((f, d), ("ff", "embed"), "scaled"),
+    }
+
+
+def _unsupported(arch: ArchConfig) -> Optional[str]:
+    if arch.attention == AttentionKind.MLA:
+        return "MLA attention"
+    if arch.moe is not None:
+        return "the moe layer plan"
+    if arch.family == "ssm":
+        return "the rwkv layer plan"
+    if arch.n_codebooks:
+        return "the audio family (codebook heads)"
+    if arch.vlm or arch.rope == RopeKind.MROPE:
+        return "the vlm family (M-RoPE, patch embeddings)"
+    if arch.family not in ("dense", "hybrid"):
+        return f"the {arch.family} family"
+    return None
+
+
+class LMModel:
+    """Schema + apply functions over a parameter tree; no owned state.
+
+    ``device`` is where ``init_params`` and ``init_cache`` put their
+    tensors: the CUDA device unless ``device="cpu"`` (raises without a
+    GPU). ``kernel_mode`` is passed to the kernels' dispatch."""
+
+    def __init__(self, arch: ArchConfig, *,
+                 kernel_mode: Optional[str] = None,
+                 cache_dtype: torch.dtype = torch.bfloat16,
+                 device: Union[None, str, torch.device] = None):
+        missing = _unsupported(arch)
+        if missing is not None:
+            raise NotImplementedError(
+                f"{arch.name}: {missing} comes with a later slice of the "
+                "port; this one runs the hybrid and dense plans")
+        self.arch = arch
+        self.padded = PaddedDims.for_tp(arch, 1)
+        self.kernel_mode = kernel_mode
+        self.cache_dtype = cache_dtype
+        self.device = resolve_device(device)
+        if arch.family == "hybrid":
+            pat = arch.hybrid.pattern
+            n_super = arch.n_layers // len(pat)
+            tail = [pat[i % len(pat)]
+                    for i in range(n_super * len(pat), arch.n_layers)]
+            self.plan = {"kind": "hybrid", "n_super": n_super,
+                         "pattern": tuple(pat), "tail": tail}
+        else:
+            self.plan = {"kind": "dense", "n": arch.n_layers}
+
+    # ------------------------------------------------------------------
+    # schema and parameters
+    # ------------------------------------------------------------------
+    def _layer_schema(self, kind: str) -> Dict[str, Any]:
+        d = self.arch.d_model
+        ln = lambda: pdef((d,), ("embed",), "ones")
+        mix = ({"rglru": rglru_mod.rglru_schema(self.arch)} if kind == "rglru"
+               else {"attn": attn_mod.gqa_schema(self.arch, self.padded)})
+        return {"ln1": ln(), **mix, "ln2": ln(),
+                "mlp": _mlp_schema(self.arch, self.padded)}
+
+    def schema(self) -> Dict[str, Any]:
+        arch, plan = self.arch, self.plan
+        d, Vp = arch.d_model, self.padded.vocab_size
+        s: Dict[str, Any] = {"embed": pdef((Vp, d), ("vocab", "embed"))}
+        if not arch.tie_embeddings:
+            s["lm_head"] = pdef((d, Vp), ("embed", "vocab"), "scaled")
+        s["final_norm"] = pdef((d,), ("embed",), "ones")
+        if plan["kind"] == "hybrid":
+            s["blocks"] = _stack_schema(
+                {f"sub{i}": self._layer_schema(k)
+                 for i, k in enumerate(plan["pattern"])}, plan["n_super"])
+            for i, k in enumerate(plan["tail"]):
+                s[f"tail{i}"] = self._layer_schema(k)
+        else:
+            s["blocks"] = _stack_schema(self._layer_schema("dense"),
+                                        plan["n"])
+        return s
+
+    def init_params(self, seed: int = 0,
+                    dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+        """Parameters drawn on the model's device from a generator seeded
+        with ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return init_params(self.schema(), gen, dtype, self.device)
+
+    def _walk(self, tree: Dict[str, Any]
+              ) -> Iterator[Tuple[str, str, int, Dict[str, Any]]]:
+        """(kind, key, layer index in the stack or -1, layer view) of every
+        layer in execution order, for a parameter or cache tree."""
+        plan = self.plan
+        if plan["kind"] == "hybrid":
+            for s in range(plan["n_super"]):
+                for i, kind in enumerate(plan["pattern"]):
+                    key = f"sub{i}"
+                    yield kind, key, s, _index(tree["blocks"][key], s)
+            for i, kind in enumerate(plan["tail"]):
+                yield kind, f"tail{i}", -1, tree[f"tail{i}"]
+        else:
+            for s in range(plan["n"]):
+                yield "dense", "", s, _index(tree["blocks"], s)
+
+    # ------------------------------------------------------------------
+    # full sequence
+    # ------------------------------------------------------------------
+    def _block_fwd(self, kind: str, p: Dict[str, Any], x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        arch = self.arch
+        h = rms_norm(x, p["ln1"], arch.norm_eps)
+        if kind == "rglru":
+            mix = rglru_mod.rglru_forward(p["rglru"], h, arch,
+                                          self.kernel_mode)
+        else:
+            window = (arch.hybrid.window
+                      if kind == "local_attn" and arch.hybrid else None)
+            mix = attn_mod.gqa_forward(p["attn"], h, arch,
+                                       positions=positions, window=window,
+                                       kernel_mode=self.kernel_mode)
+        x = x + mix
+        h = rms_norm(x, p["ln2"], arch.norm_eps)
+        return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                          p["mlp"]["w_down"], arch.act)
+
+    def _embed(self, params: Dict[str, Any],
+               tokens: torch.Tensor) -> torch.Tensor:
+        tok = params["embed"][tokens.long()]
+        if self.arch.family == "hybrid":
+            tok = tok * torch.tensor(self.arch.d_model ** 0.5,
+                                     dtype=tok.dtype)
+        return tok
+
+    def _head(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        if self.arch.tie_embeddings:
+            return torch.einsum("bsd,vd->bsv", x, params["embed"])
+        return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+    def _hidden(self, params: Dict[str, Any],
+                batch: Dict[str, Any]) -> torch.Tensor:
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        for kind, _, _, p in self._walk(params):
+            x = self._block_fwd(kind, p, x, positions)
+        return x
+
+    def forward(self, params: Dict[str, Any], batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Full-sequence pass -> (logits, hidden, aux_loss = 0)."""
+        x = self._hidden(params, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(params, x), x, aux
+
+    def prefill(self, params: Dict[str, Any], batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(last-token logits (B, 1, V), aux): ``forward(...)[0][:, -1:]``
+        without the head's work on the other positions."""
+        x = self._hidden(params, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._head(params, x[:, -1:]), aux
+
+    # ------------------------------------------------------------------
+    # caches
+    # ------------------------------------------------------------------
+    def _layer_cache_spec(self, kind: str, batch: int, cap: int):
+        if kind == "rglru":
+            return rglru_mod.rglru_cache_spec(self.arch, batch,
+                                              self.cache_dtype)
+        if kind == "local_attn":
+            cap = min(cap, self.arch.hybrid.window)
+        return attn_mod.gqa_cache_spec(self.arch, self.padded, batch, cap,
+                                       self.cache_dtype)
+
+    def cache_spec(self, batch: int, cap: int) -> Dict[str, Any]:
+        """{..: (shape, dtype)} in the parameters' layout, plus "len"."""
+        plan = self.plan
+
+        def stacked(spec, n):
+            return {k: ((n,) + shape, dt) for k, (shape, dt) in spec.items()}
+
+        out: Dict[str, Any] = {"len": ((batch,), torch.int32)}
+        if plan["kind"] == "hybrid":
+            out["blocks"] = {
+                f"sub{i}": stacked(self._layer_cache_spec(k, batch, cap),
+                                   plan["n_super"])
+                for i, k in enumerate(plan["pattern"])}
+            for i, k in enumerate(plan["tail"]):
+                out[f"tail{i}"] = self._layer_cache_spec(k, batch, cap)
+        else:
+            out["blocks"] = stacked(
+                self._layer_cache_spec("dense", batch, cap), plan["n"])
+        return out
+
+    def init_cache(self, batch: int, cap: int,
+                   fill_len: int = 0) -> Dict[str, Any]:
+        def build(node):
+            if isinstance(node, tuple):
+                shape, dt = node
+                return torch.zeros(shape, dtype=dt, device=self.device)
+            return {k: build(v) for k, v in node.items()}
+        cache = build(self.cache_spec(batch, cap))
+        cache["len"].fill_(fill_len)
+        return cache
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def _block_decode(self, kind: str, p, x, cache, cache_len):
+        arch = self.arch
+        h = rms_norm(x, p["ln1"], arch.norm_eps)
+        if kind == "rglru":
+            mix, cache = rglru_mod.rglru_decode(p["rglru"], h, cache, arch)
+        else:
+            # local attention: a window-sized ring buffer, constant memory
+            # in context length
+            mix, cache = attn_mod.gqa_decode(p["attn"], h, cache, cache_len,
+                                             arch, window=None,
+                                             ring=kind == "local_attn")
+        x = x + mix
+        h = rms_norm(x, p["ln2"], arch.norm_eps)
+        return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                          p["mlp"]["w_down"], arch.act), cache
+
+    def decode_step(self, params: Dict[str, Any], cache: Dict[str, Any],
+                    batch: Dict[str, Any]
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One-token serve step. batch['tokens']: (B, 1). Returns (logits,
+        new cache); KV buffers are written in place, recurrent states are
+        new tensors, and "len" advances for every lane."""
+        cache_len = cache["len"]
+        x = self._embed(params, batch["tokens"])
+        new_cache: Dict[str, Any] = {"len": cache_len + 1}
+        per_layer: Dict[str, List] = {}
+        views: Dict[str, List] = {}
+        for (kind, key, s, p), (_, _, _, lc) in zip(self._walk(params),
+                                                    self._walk(cache)):
+            x, c = self._block_decode(kind, p, x, lc, cache_len)
+            if s < 0:
+                new_cache[key] = c
+            else:
+                per_layer.setdefault(key, []).append(c)
+                views.setdefault(key, []).append(lc)
+        if self.plan["kind"] == "hybrid":
+            new_cache["blocks"] = {
+                key: _restack(per_layer[key], views[key],
+                              cache["blocks"][key]) for key in per_layer}
+        else:
+            new_cache["blocks"] = _restack(per_layer[""], views[""],
+                                           cache["blocks"])
+        return self._head(params, x), new_cache

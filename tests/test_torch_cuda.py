@@ -17,6 +17,11 @@ from repro_torch.kernels.join_probe import join_probe
 from repro_torch.kernels.radix_partition.ops import (block_histograms,
                                                      padded_bin_counts)
 from repro_torch.kernels.radix_partition.ref import block_histograms_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_chunked
+from repro_torch.kernels.rglru_scan import linear_scan
+from repro_torch.kernels.rglru_scan.ops import _launch as scan_launch
+from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
 
 
 @pytest.fixture
@@ -99,3 +104,74 @@ def test_cuda_segment_sum_is_bit_stable(dev, n, groups, width):
                        ).index_add_(0, ids, vals.double())
     np.testing.assert_allclose(a.double().cpu().numpy(),
                                want.cpu().numpy(), rtol=1e-5)
+
+
+# The attention and scan kernels against their plain versions: both sum
+# the same float32 products in other orders, so 1e-5 absolute and relative.
+ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (14, 2), (10, 1)])
+@pytest.mark.parametrize("S,window,q_offset", [(300, None, 0),
+                                               (257, 37, 0),
+                                               (130, 16, 70)])
+def test_cuda_flash_attention_matches_plain(dev, D, Hq, Hkv, S, window,
+                                            q_offset):
+    gen = torch.Generator(device=dev).manual_seed(D + Hq + S)
+    Skv = S + q_offset
+    q = torch.randn((2, S, Hq, D), device=dev, generator=gen)
+    k = torch.randn((2, Skv, Hkv, D), device=dev, generator=gen)
+    v = torch.randn((2, Skv, Hkv, D), device=dev, generator=gen)
+    before = common.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, window=window, q_offset=q_offset)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    want = attention_chunked(q, k, v, window=window, q_offset=q_offset)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+def test_cuda_flash_attention_rows_without_keys_are_zero(dev, D):
+    gen = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn((1, 70, 2, D), device=dev, generator=gen)
+    k = torch.randn((1, 40, 1, D), device=dev, generator=gen)
+    v = torch.randn((1, 40, 1, D), device=dev, generator=gen)
+    # rows at positions 100..169 with a window of 50 see keys > 50: none
+    got = flash_attention(q, k, v, window=50, q_offset=100)
+    assert torch.equal(got, torch.zeros_like(got))
+    # rows at 30..99: the first rows see some of the 40 keys, the rest none
+    got = flash_attention(q, k, v, window=50, q_offset=30)
+    want = attention_chunked(q, k, v, window=50, q_offset=30)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
+    assert torch.equal(got[:, 60:], torch.zeros_like(got[:, 60:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 257, 4096])
+@pytest.mark.parametrize("chunk", [64, 7])
+def test_cuda_linear_scan_matches_plain(dev, S, chunk):
+    gen = torch.Generator(device=dev).manual_seed(S + chunk)
+    a = torch.rand((2, S, 300), device=dev, generator=gen) * 0.98 + 0.01
+    b = torch.randn((2, S, 300), device=dev, generator=gen)
+    before = common.LAUNCHES["rglru_scan"]
+    got = (linear_scan(a, b) if chunk == 64
+           else scan_launch(a, b, chunk=chunk))
+    assert common.LAUNCHES["rglru_scan"] == before + 1
+    want = linear_scan_sequential(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_linear_scan_carries_across_chunks(dev):
+    """a = 1 everywhere: h is the running sum of b, so a carry lost or
+    applied twice at a chunk boundary shows as a step there."""
+    a = torch.ones((1, 200, 130), device=dev)
+    b = torch.ones((1, 200, 130), device=dev)
+    got = scan_launch(a, b, chunk=64)
+    want = torch.arange(1, 201, device=dev, dtype=torch.float32)
+    assert torch.equal(got[0], want[:, None].expand(200, 130))

@@ -187,7 +187,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.analytics.tpch, "
             "repro_torch.analytics.planner, repro_torch.analytics.engine, "
             "repro_torch.analytics.datasets, repro_torch.core.vmesh, "
-            "repro_torch.kernels.radix_partition\n"
+            "repro_torch.kernels.radix_partition, repro_torch.models.lm, "
+            "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.rglru_scan\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))\n"
