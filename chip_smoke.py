@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-main paths give it, and drives three paths through the port's entry
+main paths give it, and drives four paths through the port's entry
 points:
 
   * the single-device path: all seven TPC-H queries at SF1 through
@@ -28,7 +28,13 @@ points:
     18 ``rglru_scan`` launches), its logits against the plain versions'
     prefill, 64 decode steps against the forward pass, and 32 requests
     served through ``repro_torch.launch.serve.serve``, the launcher's
-    entry function.
+    entry function;
+  * the same for rwkv6-7b at full width (32 layers, d_model 4096, 64
+    heads of 64, 7.58B fp32 parameters drawn on the card): one 2 x 4096
+    prefill (32 ``wkv6`` launches, no other kernel), the kernel against
+    its plain version at layer 0's inputs and on edge cases, logits
+    against the plain prefill, 64 decode steps against the forward pass,
+    and 32 requests served through the launcher.
 
 The kernel launch counts are zeroed just before each path and read just
 after it; a kernel of a path that never launched fails the run. It also
@@ -95,12 +101,14 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 @contextlib.contextmanager
-def capture(module, name: str, store: list):
-    """Record the arguments of every call to ``module.name``."""
+def capture(module, name: str, store: list, keep: int | None = None):
+    """Record the arguments of every call to ``module.name`` (of the first
+    ``keep`` calls when given)."""
     orig = getattr(module, name)
 
     def wrapper(*args, **kwargs):
-        store.append((args, kwargs))
+        if keep is None or len(store) < keep:
+            store.append((args, kwargs))
         return orig(*args, **kwargs)
 
     setattr(module, name, wrapper)
@@ -1024,6 +1032,7 @@ def device_breakdown(fn):
         name = e.key.lower()
         kind = ("flash_attention" if "fa_fwd" in name else
                 "rglru_scan" if "scan_" in name else
+                "wkv6" if "wkv6" in name else
                 "matmul" if any(w in name for w in ("gemm", "cutlass",
                                                     "xmma", "sm90")) else
                 "other")
@@ -1033,6 +1042,96 @@ def device_breakdown(fn):
     return dict(wall_ms=wall, device_busy_ms=busy or "not measured",
                 idle_share=(1 - busy / wall) if busy else "not measured",
                 device_ops=ops, device_ms_by_kind=kinds)
+
+
+def lm_prefill_checks(model, plain, params, batch, logits, label):
+    """Prefill logits with the kernels against the plain versions'
+    prefill, then the warm prefill's time, peak memory and device time by
+    kind. Run under torch.no_grad()."""
+    import torch
+    want, _ = plain.prefill(params, batch)
+    err, rel = held(logits, want, PREFILL_TOL, f"{label} prefill logits")
+    log(f"{label} prefill logits, kernels vs plain: max_abs_err {err!r}, "
+        f"limit share {rel!r} (|logit| up to {float(want.abs().max())!r})")
+    del want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: model.prefill(params, batch), reps=WARM_REPS,
+                 warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label} prefill warm: {ms!r} ms per prefill of {LM_B}x{LM_S} "
+        f"tokens ({LM_B * LM_S / ms * 1e3:.1f} tokens/s), peak "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"{label} prefill device time: " + json.dumps(device_breakdown(
+        lambda: model.prefill(params, batch))))
+
+
+def lm_decode_vs_forward(arch, params, tokens, dev, label):
+    """LM_DECODE decode steps with a float32 cache against the forward
+    pass over the same tokens. Run under torch.no_grad()."""
+    import torch
+    from repro_torch.models.lm import LMModel
+    m32 = LMModel(arch, device=dev, cache_dtype=torch.float32)
+    toks = tokens[:, :LM_DECODE]
+    full, _, _ = m32.forward(params, {"tokens": toks})
+    cache = m32.init_cache(LM_B, LM_DECODE + 1)
+    worst = 0.0
+    for t in range(LM_DECODE):
+        step, cache = m32.decode_step(params, cache,
+                                      {"tokens": toks[:, t:t + 1]})
+        worst = max(worst, held(step[:, 0], full[:, t], DECODE_TOL,
+                                f"{label} decode step {t} vs forward")[0])
+    log(f"{label} decode vs forward: {LM_DECODE} steps, B={LM_B}, float32 "
+        f"cache: max_abs_err {worst!r} (limit {DECODE_TOL})")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def lm_serving(argv, label):
+    """Serve through the launcher's entry function (its own seeded
+    weights), launch counts read around it (decode runs no kernel): every
+    request must complete with ``max_new`` tokens and the cache stay
+    finite. Then one warm wave's time and device time, and the peak."""
+    import gc
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve as serve_mod
+    args = serve_mod.parse_args(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    stats, batcher = serve_mod.serve(args)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = dict(common.LAUNCHES)
+    log(f"{label} serving {' '.join(argv)}: {json.dumps(stats)}")
+    if stats["completed"] != args.requests or \
+            stats["tokens_out"] != args.requests * args.max_new:
+        raise AssertionError(f"{label} serving: {stats['completed']} of "
+                             f"{args.requests} requests, "
+                             f"{stats['tokens_out']} tokens")
+    if not all(bool(torch.isfinite(x).all()) for x in _leaves(batcher.cache)):
+        raise AssertionError(f"{label} serving: the cache is not finite")
+
+    def wave():
+        return batcher.model.decode_step(batcher.params, batcher.cache,
+                                         {"tokens": batcher._tokens})
+
+    with torch.no_grad():
+        wave_ms = cuda_ms(wave, reps=10)
+        log(f"{label} decode wave device time: " + json.dumps(
+            device_breakdown(wave)))
+    log(f"{label} serving: {serve_s:.3f} s for {stats['steps']} waves "
+        f"({serve_s / stats['steps'] * 1e3:.3f} ms per wave with weight "
+        f"init and admission), warm decode wave (B={args.wave_slots}) "
+        f"{wave_ms!r} ms, launches {serve_launches}")
+    del batcher, wave
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line(f"{label} serving")
 
 
 def lm_phase(dev):
@@ -1052,7 +1151,6 @@ def lm_phase(dev):
     from repro_torch.kernels.flash_attention.ref import attention_chunked
     from repro_torch.kernels.rglru_scan.ops import linear_scan
     from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
-    from repro_torch.launch import serve as serve_mod
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import rglru as rglru_mod
     from repro_torch.models.lm import LMModel
@@ -1117,38 +1215,8 @@ def lm_phase(dev):
         scan_err = check_scan(a, b, "prefill inputs (layer 1)")
         lm_kernel_edges(dev)
 
-        # prefill logits with the kernels against the plain versions
-        want, _ = plain.prefill(params, batch)
-        err, rel = held(logits, want, PREFILL_TOL, "prefill logits")
-        log(f"LM prefill logits, kernels vs plain: max_abs_err {err!r}, "
-            f"limit share {rel!r} (|logit| up to "
-            f"{float(want.abs().max())!r})")
-        del want
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        prefill_ms = cuda_ms(lambda: model.prefill(params, batch),
-                             reps=WARM_REPS, warmup=1)
-        prefill_peak = torch.cuda.max_memory_allocated()
-        log(f"LM prefill warm: {prefill_ms!r} ms per prefill of "
-            f"{LM_B}x{LM_S} tokens ({LM_B * LM_S / prefill_ms * 1e3:.1f} "
-            f"tokens/s), peak {prefill_peak / 2**30:.3f} GiB")
-        log("LM prefill device time: " + json.dumps(device_breakdown(
-            lambda: model.prefill(params, batch))))
-
-        # decode against forward at full width, float32 cache
-        m32 = LMModel(arch, device=dev, cache_dtype=torch.float32)
-        toks = tokens[:, :LM_DECODE]
-        full, _, _ = m32.forward(params, {"tokens": toks})
-        cache = m32.init_cache(LM_B, LM_DECODE + 1)
-        worst = 0.0
-        for t in range(LM_DECODE):
-            step, cache = m32.decode_step(params, cache,
-                                          {"tokens": toks[:, t:t + 1]})
-            worst = max(worst, held(step[:, 0], full[:, t], DECODE_TOL,
-                                    f"decode step {t} vs forward")[0])
-        log(f"LM decode vs forward: {LM_DECODE} steps, B={LM_B}, float32 "
-            f"cache: max_abs_err {worst!r} (limit {DECODE_TOL})")
-        del full, cache, step
+        lm_prefill_checks(model, plain, params, batch, logits, "LM")
+        lm_decode_vs_forward(arch, params, tokens, dev, "LM")
 
     # the kernels' times at the prefill shape
     B, Sq, Hq, D = q.shape
@@ -1190,46 +1258,11 @@ def lm_phase(dev):
     log(f"flash_attention timing {json.dumps(fa_time)}")
     log(f"rglru_scan timing {json.dumps(sc_time)}")
     del q, k, v, a, b, qt, kt, vt, mask, fa_calls, scan_calls
-    del params, plain, model, m32
+    del params, plain, model
     gc.collect()
     torch.cuda.empty_cache()
     peak_line("LM prefill, kernels, decode vs forward")
-
-    # serving through the launcher's entry function (its own seeded
-    # weights), launch counts read around it: decode runs no kernel
-    args = serve_mod.parse_args(SERVE_ARGV + ["--device", "cuda"])
-    torch.cuda.synchronize()
-    common.reset_launches()
-    t0 = time.perf_counter()
-    stats, batcher = serve_mod.serve(args)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    serve_launches = dict(common.LAUNCHES)
-    log(f"LM serving {' '.join(SERVE_ARGV)}: {json.dumps(stats)}")
-    if stats["completed"] != args.requests or \
-            stats["tokens_out"] != args.requests * args.max_new:
-        raise AssertionError(f"serving: {stats['completed']} of "
-                             f"{args.requests} requests, "
-                             f"{stats['tokens_out']} tokens")
-    h = batcher.cache["blocks"]["sub0"]["h"]
-    if not bool(torch.isfinite(h).all()):
-        raise AssertionError("serving: the recurrent state is not finite")
-    with torch.no_grad():
-        wave_ms = cuda_ms(lambda: batcher.model.decode_step(
-            batcher.params, batcher.cache, {"tokens": batcher._tokens}),
-            reps=10)
-    with torch.no_grad():
-        log("LM decode wave device time: " + json.dumps(device_breakdown(
-            lambda: batcher.model.decode_step(batcher.params, batcher.cache,
-                                              {"tokens": batcher._tokens}))))
-    log(f"LM serving: {serve_s:.3f} s for {stats['steps']} waves "
-        f"({serve_s / stats['steps'] * 1e3:.3f} ms per wave with weight "
-        f"init and admission), warm decode wave (B={args.wave_slots}) "
-        f"{wave_ms!r} ms, launches {serve_launches}")
-    del batcher
-    gc.collect()
-    torch.cuda.empty_cache()
-    peak_line("LM serving")
+    lm_serving(SERVE_ARGV, "LM")
     return [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1242,6 +1275,154 @@ def lm_phase(dev):
              launches=launches["rglru_scan"], max_abs_err=scan_err,
              **sc_time),
     ]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: serving rwkv6-7b at full width (prefill + decode waves)
+# ---------------------------------------------------------------------------
+RWKV_ARCH = "rwkv6-7b"
+RWKV_SERVE_ARGV = ["--arch", RWKV_ARCH, "--requests", "32", "--wave-slots",
+                   "8", "--max-new", "16", "--seed", str(SEED)]
+# The kernel takes its plain version's float32 operations in their order,
+# so it should give the same bits; y and the final state are held within
+# 1e-5 of their largest |value| and whether the bits are equal is printed.
+# Logits and decode as for recurrentgemma-2b.
+WKV_TOL = 1e-5
+
+
+def check_wkv6(r, k, v, w, u, label):
+    """Kernel (through the dispatching wrapper) vs plain version; the
+    kernel's bits equal on two runs. Returns the largest absolute error."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+    got = wkv6(r, k, v, w, u, mode="cuda")
+    again = wkv6(r, k, v, w, u, mode="cuda")
+    want = wkv6_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"wkv6 {label}: two runs differ")
+    errs = []
+    for part, g, x in zip(("y", "state"), got, want):
+        if g.shape != x.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"wkv6 {label}: {part} has shape "
+                                 f"{tuple(g.shape)} or is not finite")
+        err, top = float((g - x).abs().max()), float(x.abs().max())
+        if err > WKV_TOL * top:
+            raise AssertionError(f"wkv6 {label}: {part} off by {err!r}, "
+                                 f"over {WKV_TOL} of its largest |value| "
+                                 f"{top!r}")
+        errs.append(err)
+        log(f"wkv6 {label}: {part} {tuple(g.shape)} max_abs_err {err!r} "
+            f"(limit {WKV_TOL * top!r}), bit-equal {torch.equal(g, x)}")
+    return max(errs)
+
+
+def wkv6_edges(dev):
+    """The kernel against its plain version off the prefill's shape: one
+    step, a length that is no multiple of the chunk, the reduced model's
+    head of 16, one batch and head, and decays near 1 and near 0."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for shape, w_lo, w_hi, label in [
+            ((1, 1, 1, 64), 0.6, 0.99, "S 1, N 64, B = H = 1"),
+            ((1, 4097, 1, 64), 0.9996, 0.9998, "S 4097, N 64, decay ~0.9997"),
+            ((2, 4097, 4, 16), 0.0, 0.01, "S 4097, N 16, decay near 0"),
+            ((1, 1, 1, 16), 0.6, 0.99, "S 1, N 16")]:
+        r, k, v = (torch.randn(shape, device=dev, generator=gen) * 0.5
+                   for _ in range(3))
+        w = w_lo + (w_hi - w_lo) * torch.rand(shape, device=dev,
+                                              generator=gen)
+        u = torch.randn(shape[2:], device=dev, generator=gen) * 0.5
+        check_wkv6(r, k, v, w, u, label)
+
+
+def rwkv_phase(dev):
+    """Serve rwkv6-7b at full width: prefill through ``LMModel.prefill``
+    with the kernel (launch counts read around it), the kernel against its
+    plain version at the prefill's own inputs (layer 0) and on edge cases,
+    prefill logits against the plain path, decode against forward, the
+    serving launcher's entry function, and the kernel's times. Returns the
+    kernel's record."""
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.params import param_count
+    from repro_torch.kernels import common
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models.lm import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products, as the
+    torch.backends.cudnn.allow_tf32 = False         # reference's
+    arch = get_arch(RWKV_ARCH)
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    n_layers = model.plan["n"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(seed=SEED)
+    torch.cuda.synchronize()
+    n_params = param_count(model.schema())
+    log(f"RWKV: {RWKV_ARCH} at full width ({arch.n_layers} layers, d_model "
+        f"{arch.d_model}, {arch.d_model // arch.rwkv.head_size} heads x "
+        f"{arch.rwkv.head_size}, d_ff {arch.d_ff}, vocab {arch.vocab_size}):"
+        f" {n_params} fp32 parameters ({n_params * 4 / 2**30:.3f} GiB) "
+        f"drawn on the card in {time.perf_counter() - t0:.3f} s, seed {SEED}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(1, arch.vocab_size, (LM_B, LM_S), device=dev,
+                           dtype=torch.int32, generator=gen)
+    batch = {"tokens": tokens}
+
+    # the main path: one prefill, launch counts read around it
+    calls = []
+    with torch.no_grad(), capture(rwkv_mod, "wkv6", calls, keep=1):
+        torch.cuda.synchronize()
+        common.reset_launches()                 # just before the path
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)        # just after it
+    log(f"RWKV prefill B={LM_B} S={LM_S}: first run "
+        f"{time.perf_counter() - t0:.3f} s, launches {launches}")
+    others = {n: c for n, c in launches.items() if n != "wkv6" and c}
+    if launches["wkv6"] != n_layers or others:
+        raise AssertionError(f"prefill launched wkv6 {launches['wkv6']} "
+                             f"times (want {n_layers}) and {others}")
+    if logits.shape != (LM_B, 1, model.padded.vocab_size):
+        raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+
+    r, k, v, w, u = calls[0][0][:5]
+    with torch.no_grad():
+        wkv_err = check_wkv6(r, k, v, w, u, "prefill inputs (layer 0)")
+        wkv6_edges(dev)
+
+        lm_prefill_checks(model, plain, params, batch, logits, "RWKV")
+        lm_decode_vs_forward(arch, params, tokens, dev, "RWKV")
+
+        # the kernel's times at the prefill shape
+        B, S, H, N = r.shape
+        wkv_ms = cuda_ms(lambda: wkv6(r, k, v, w, u, mode="cuda"), reps=20)
+        wkv_plain = cuda_ms(lambda: wkv6_ref(r, k, v, w, u), reps=2)
+        wkv_bound, wkv_by = bound_ms(
+            4 * (5 * B * S * H * N + H * N + B * H * N * N),
+            B * S * H * (5.0 * N * N + 5.0 * N))
+    wkv_time = dict(shape=f"prefill WKV6 (layer 0): r/k/v/w ({B}, {S}, {H}, "
+                    f"{N}) f32, u ({H}, {N})", ms=wkv_ms,
+                    plain_ms=wkv_plain, bound_ms=wkv_bound, bound_by=wkv_by,
+                    library_ms=None)
+    log(f"wkv6 timing {json.dumps(wkv_time)}")
+    del r, k, v, w, u, calls, params, plain, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("RWKV prefill, kernel, decode vs forward")
+    lm_serving(RWKV_SERVE_ARGV, "RWKV")
+    return dict(name="wkv6", route="cuda",
+                source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan/kernel.py:61",
+                launches=launches["wkv6"], max_abs_err=wkv_err, **wkv_time)
 
 
 def peak_line(label: str) -> None:
@@ -1325,6 +1506,8 @@ def main() -> int:
     w_phase(dev)
     peak_line("W1-W3")
     lm_kernels = lm_phase(dev)
+    torch.cuda.reset_peak_memory_stats()
+    wkv_kernel = rwkv_phase(dev)
 
     head = agg_times["q18"]
     kernels = [
@@ -1344,7 +1527,7 @@ def main() -> int:
              replaces="src/repro/kernels/radix_partition/kernel.py:35",
              launches=dist_launches["block_histograms"], max_abs_err=0.0,
              **radix_time),
-    ] + lm_kernels
+    ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,7 +27,8 @@ SOURCES = {"hash_aggregate": "hash_aggregate.cu",
            "join_probe": "join_probe.cu",
            "radix_partition": "radix_partition.cu",
            "flash_attention": "flash_attention.cu",
-           "rglru_scan": "rglru_scan.cu"}
+           "rglru_scan": "rglru_scan.cu",
+           "rwkv6_scan": "rwkv6_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

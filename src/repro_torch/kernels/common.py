@@ -43,7 +43,8 @@ def kernel_mode(mode: Optional[str] = None,
 # went through the kernels (chip_smoke.py zeroes them around the main path).
 # The shards of a virtual mesh launch from threads, hence the lock.
 LAUNCHES = {"hash_aggregate_multi": 0, "join_probe": 0,
-            "block_histograms": 0, "flash_attention": 0, "rglru_scan": 0}
+            "block_histograms": 0, "flash_attention": 0, "rglru_scan": 0,
+            "wkv6": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -59,9 +60,11 @@ def reset_launches() -> None:
 
 
 def check_input(t: torch.Tensor, name: str, dtype: torch.dtype,
-                shape: tuple, device: torch.device) -> None:
-    """Raise unless ``t`` is what a CUDA kernel takes: a contiguous tensor
-    of ``dtype`` and ``shape`` on the CUDA device ``device``."""
+                shape: tuple, device: torch.device,
+                contiguous: bool = True) -> None:
+    """Raise unless ``t`` is what a CUDA kernel takes: a tensor of
+    ``dtype`` and ``shape`` on the CUDA device ``device``, contiguous (or,
+    with ``contiguous=False``, contiguous in its last dim)."""
     if t.device != device or device.type != "cuda":
         raise ValueError(f"{name} must lie on {device}, a CUDA device; "
                          f"got {t.device}")
@@ -70,8 +73,10 @@ def check_input(t: torch.Tensor, name: str, dtype: torch.dtype,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if not contiguous and t.dim() and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous in its last dim")
 
 
 def stream_handle(device: torch.device) -> int:

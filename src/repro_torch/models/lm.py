@@ -1,14 +1,15 @@
-"""The decoder LM stack, for the hybrid and dense layer plans.
+"""The decoder LM stack, for the hybrid, dense and rwkv layer plans.
 
 The counterpart of ``repro.models.lm.LMModel``:
   dense  (yi-34b, qwen2-0.5b, qwen3-1.7b, granite-3-8b):  GQA + SwiGLU
   hybrid (recurrentgemma-2b):  (RG-LRU, RG-LRU, local-attn) pattern + GeGLU
+  ssm    (rwkv6-7b):           time-mix + channel-mix (attention-free)
 
 Parameters and caches keep the reference's layout (``core.params``): a
 homogeneous stack is stacked along a leading layer axis and a pattern's
 tail is ``tail{i}``. Where the reference scans the stack, the port walks
 it with a Python loop over views. ``prefill`` applies the head to the last
-position only. The other plans (moe, rwkv, audio, vlm, MLA) raise
+position only. The other plans (moe, audio, vlm, MLA) raise
 ``NotImplementedError``: they come with later slices of the port.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.core.config import (ArchConfig, AttentionKind, PaddedDims,
 from repro_torch.core.params import ParamDef, init_params, pdef
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import rms_norm, swiglu
 
 
@@ -71,13 +73,11 @@ def _unsupported(arch: ArchConfig) -> Optional[str]:
         return "MLA attention"
     if arch.moe is not None:
         return "the moe layer plan"
-    if arch.family == "ssm":
-        return "the rwkv layer plan"
     if arch.n_codebooks:
         return "the audio family (codebook heads)"
     if arch.vlm or arch.rope == RopeKind.MROPE:
         return "the vlm family (M-RoPE, patch embeddings)"
-    if arch.family not in ("dense", "hybrid"):
+    if arch.family not in ("dense", "hybrid", "ssm"):
         return f"the {arch.family} family"
     return None
 
@@ -97,7 +97,7 @@ class LMModel:
         if missing is not None:
             raise NotImplementedError(
                 f"{arch.name}: {missing} comes with a later slice of the "
-                "port; this one runs the hybrid and dense plans")
+                "port; this one runs the hybrid, dense and rwkv plans")
         self.arch = arch
         self.padded = PaddedDims.for_tp(arch, 1)
         self.kernel_mode = kernel_mode
@@ -111,7 +111,8 @@ class LMModel:
             self.plan = {"kind": "hybrid", "n_super": n_super,
                          "pattern": tuple(pat), "tail": tail}
         else:
-            self.plan = {"kind": "dense", "n": arch.n_layers}
+            self.plan = {"kind": "rwkv" if arch.family == "ssm" else "dense",
+                         "n": arch.n_layers}
 
     # ------------------------------------------------------------------
     # schema and parameters
@@ -119,6 +120,10 @@ class LMModel:
     def _layer_schema(self, kind: str) -> Dict[str, Any]:
         d = self.arch.d_model
         ln = lambda: pdef((d,), ("embed",), "ones")
+        if kind == "rwkv":
+            # the channel mix's parameters (cm_*) live inside "tm"
+            return {"ln1": ln(), "tm": rwkv_mod.rwkv_schema(self.arch),
+                    "ln2": ln()}
         mix = ({"rglru": rglru_mod.rglru_schema(self.arch)} if kind == "rglru"
                else {"attn": attn_mod.gqa_schema(self.arch, self.padded)})
         return {"ln1": ln(), **mix, "ln2": ln(),
@@ -138,7 +143,7 @@ class LMModel:
             for i, k in enumerate(plan["tail"]):
                 s[f"tail{i}"] = self._layer_schema(k)
         else:
-            s["blocks"] = _stack_schema(self._layer_schema("dense"),
+            s["blocks"] = _stack_schema(self._layer_schema(plan["kind"]),
                                         plan["n"])
         return s
 
@@ -163,7 +168,7 @@ class LMModel:
                 yield kind, f"tail{i}", -1, tree[f"tail{i}"]
         else:
             for s in range(plan["n"]):
-                yield "dense", "", s, _index(tree["blocks"], s)
+                yield plan["kind"], "", s, _index(tree["blocks"], s)
 
     # ------------------------------------------------------------------
     # full sequence
@@ -172,7 +177,10 @@ class LMModel:
                    positions: torch.Tensor) -> torch.Tensor:
         arch = self.arch
         h = rms_norm(x, p["ln1"], arch.norm_eps)
-        if kind == "rglru":
+        if kind == "rwkv":
+            mix = rwkv_mod.time_mix_forward(p["tm"], h, arch,
+                                            self.kernel_mode)
+        elif kind == "rglru":
             mix = rglru_mod.rglru_forward(p["rglru"], h, arch,
                                           self.kernel_mode)
         else:
@@ -183,6 +191,8 @@ class LMModel:
                                        kernel_mode=self.kernel_mode)
         x = x + mix
         h = rms_norm(x, p["ln2"], arch.norm_eps)
+        if kind == "rwkv":
+            return x + rwkv_mod.channel_mix_forward(p["tm"], h)
         return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                           p["mlp"]["w_down"], arch.act)
 
@@ -227,6 +237,9 @@ class LMModel:
     # caches
     # ------------------------------------------------------------------
     def _layer_cache_spec(self, kind: str, batch: int, cap: int):
+        if kind == "rwkv":
+            return rwkv_mod.rwkv_cache_spec(self.arch, batch,
+                                            self.cache_dtype)
         if kind == "rglru":
             return rglru_mod.rglru_cache_spec(self.arch, batch,
                                               self.cache_dtype)
@@ -252,7 +265,7 @@ class LMModel:
                 out[f"tail{i}"] = self._layer_cache_spec(k, batch, cap)
         else:
             out["blocks"] = stacked(
-                self._layer_cache_spec("dense", batch, cap), plan["n"])
+                self._layer_cache_spec(plan["kind"], batch, cap), plan["n"])
         return out
 
     def init_cache(self, batch: int, cap: int,
@@ -272,7 +285,9 @@ class LMModel:
     def _block_decode(self, kind: str, p, x, cache, cache_len):
         arch = self.arch
         h = rms_norm(x, p["ln1"], arch.norm_eps)
-        if kind == "rglru":
+        if kind == "rwkv":
+            mix, cache = rwkv_mod.time_mix_decode(p["tm"], h, cache, arch)
+        elif kind == "rglru":
             mix, cache = rglru_mod.rglru_decode(p["rglru"], h, cache, arch)
         else:
             # local attention: a window-sized ring buffer, constant memory
@@ -282,6 +297,9 @@ class LMModel:
                                              ring=kind == "local_attn")
         x = x + mix
         h = rms_norm(x, p["ln2"], arch.norm_eps)
+        if kind == "rwkv":
+            y, cache = rwkv_mod.channel_mix_decode(p["tm"], h, cache)
+            return x + y, cache
         return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                           p["mlp"]["w_down"], arch.act), cache
 

@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_attention.ref import attention_chunked
 from repro_torch.kernels.rglru_scan import linear_scan
 from repro_torch.kernels.rglru_scan.ops import _launch as scan_launch
 from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
+from repro_torch.kernels.rwkv6_scan import wkv6
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
 
 @pytest.fixture
@@ -175,3 +177,57 @@ def test_cuda_linear_scan_carries_across_chunks(dev):
     got = scan_launch(a, b, chunk=64)
     want = torch.arange(1, 201, device=dev, dtype=torch.float32)
     assert torch.equal(got[0], want[:, None].expand(200, 130))
+
+
+# WKV6 against its plain version: the kernel takes the plain version's
+# operations in its order, so y and the final state are equal bit for bit.
+def _wkv6_inputs(dev, shape, w_lo, w_hi, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S, H, N = shape
+    r, k, v = (torch.randn(shape, device=dev, generator=gen) * 0.5
+               for _ in range(3))
+    w = w_lo + (w_hi - w_lo) * torch.rand(shape, device=dev, generator=gen)
+    u = torch.randn((H, N), device=dev, generator=gen) * 0.5
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,N", [(1, 1, 1, 16), (1, 1, 1, 64),
+                                     (1, 4097, 1, 64), (2, 300, 3, 16),
+                                     (2, 257, 4, 32), (1, 4097, 1, 16)])
+@pytest.mark.parametrize("w_lo,w_hi", [(0.6, 0.99), (0.9996, 0.9998),
+                                       (0.0, 0.01)])
+def test_cuda_wkv6_equals_plain(dev, B, S, H, N, w_lo, w_hi):
+    r, k, v, w, u = _wkv6_inputs(dev, (B, S, H, N), w_lo, w_hi, S + N)
+    before = common.LAUNCHES["wkv6"]
+    a = wkv6(r, k, v, w, u)
+    b = wkv6(r, k, v, w, u)
+    assert common.LAUNCHES["wkv6"] == before + 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[0].shape == (B, S, H, N) and a[1].shape == (B, H, N, N)
+    want = wkv6_ref(r, k, v, w, u)
+    assert torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_reads_strided_inputs_in_place(dev):
+    """Heads cut from a wider (B, S, 2d) activation: the kernel reads them
+    through their strides and gives the bits of contiguous copies."""
+    B, S, H, N = 2, 100, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wide = [torch.randn((B, S, 2 * H * N), device=dev, generator=gen) * 0.5
+            for _ in range(4)]
+    wide[3] = torch.sigmoid(wide[3])                      # decays in (0, 1)
+    r, k, v, w = (x[..., :H * N].unflatten(-1, (H, N)) for x in wide)
+    u = torch.randn((H, N), device=dev, generator=gen)
+    assert not r.is_contiguous() and w.stride() == r.stride()
+    got = wkv6(r, k, v, w, u)
+    want = wkv6(*(x.contiguous() for x in (r, k, v, w)), u)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_rejects_other_head_sizes(dev):
+    r, k, v, w, u = _wkv6_inputs(dev, (1, 8, 1, 48), 0.5, 0.9, 0)
+    with pytest.raises(ValueError, match="head size"):
+        wkv6(r, k, v, w, u)

@@ -190,7 +190,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.radix_partition, repro_torch.models.lm, "
             "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.rglru_scan\n"
+            "repro_torch.kernels.rglru_scan, "
+            "repro_torch.kernels.rwkv6_scan, repro_torch.models.rwkv6\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))\n"
