@@ -18,8 +18,9 @@ points:
     shards under the four placement policies x {argsort, radix, cost}
     Exchange contexts and one composed kernel context, checked against the
     single-device plain path and float64 (argsort == radix and candidates
-    TopK == replicated bit for bit), then W1/W2/W3 (``engine.dist_median``
-    / ``dist_count`` / ``dist_hash_join``) at the paper's sizes under each
+    TopK == replicated bit for bit), the largest ``hash_aggregate_multi``
+    call of one shard timed, then W1/W2/W3 (``engine.dist_median`` /
+    ``dist_count`` / ``dist_hash_join``) at the paper's sizes under each
     policy;
   * the LM serving path: recurrentgemma-2b at full width (26 layers,
     d_model 2560, 2.66B fp32 parameters drawn from a seeded generator on
@@ -93,6 +94,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one call of ``fn``: the self time of
+    every kernel, copy and memset it ran under torch.profiler, over
+    ``reps`` calls after one warm-up. For a call that waits on the host
+    (a flag read back), where CUDA events around back-to-back calls would
+    also count the host's gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not busy:
+        raise RuntimeError("torch.profiler saw no device time")
+    return busy / 1e3 / reps
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     """(least milliseconds the card could take, what bounds it)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
@@ -148,19 +172,21 @@ def check_hash_aggregate(ids, vals, n_bins, label):
 
 
 def check_join_probe(bk, bv, pk, label):
-    """Kernel vs plain version: vals and found must be equal."""
+    """Kernel vs plain version: vals (bit for bit, so a -0.0 payload
+    counts) and found must be equal."""
     import torch
     from repro_torch.kernels.join_probe import join_probe
     from repro_torch.kernels.join_probe.ref import join_probe_ref
     v, f = join_probe(bk, bv, pk, mode="cuda")
     rv, rf = join_probe_ref(bk, bv, pk)
     torch.cuda.synchronize()
-    if not (torch.equal(v, rv) and torch.equal(f, rf)):
+    if not (torch.equal(v.view(torch.int32), rv.view(torch.int32))
+            and torch.equal(f, rf)):
         raise AssertionError(f"join_probe {label}: differs from the plain "
                              f"version ({int((v != rv).sum())} vals, "
                              f"{int((f != rf).sum())} found)")
     log(f"join_probe {label}: P={pk.shape[0]} Bk={bk.shape[1]} "
-        f"Pk={pk.shape[1]} equal ({int(f.sum())} found)")
+        f"Pk={pk.shape[1]} bit-equal ({int(f.sum())} found)")
     return float((v - rv).abs().max()) if v.numel() else 0.0
 
 
@@ -176,6 +202,53 @@ def synthetic_probe(P, Bk, Pk, gen, dev):
                        generator=gen)                      # many misses
     pk[:, ::7] = -1                                       # probe padding
     return bk, bv, pk
+
+
+def colliding_probe(Bk, Pk, gen, dev):
+    """One partition whose keys all start their walk at one table entry
+    (their mixed hashes share the top bits): half the probes hit, half miss
+    after walking the whole chain; a tenth are padding."""
+    import torch
+    from repro_torch.kernels.join_probe.ops import table_log2, unmix32
+    b = table_log2(Bk)
+    hashes = (7 << (32 - b)) + torch.arange(2 * Bk + 1, device=dev)
+    keys = unmix32(hashes)
+    keys = torch.where(keys >= 1 << 31, keys - (1 << 32), keys)
+    keys = keys[keys != -1][:2 * Bk].to(torch.int32)
+    bk = keys[:Bk][None].clone()
+    bk[:, -Bk // 10:] = -1
+    bv = torch.arange(Bk, device=dev, dtype=torch.float32)[None] - Bk // 2
+    pk = keys[torch.randint(0, 2 * Bk, (1, Pk), device=dev,
+                            generator=gen)]
+    pk[:, ::10] = -1
+    return bk, bv, pk
+
+
+def join_probe_edges(gen, dev):
+    """The kernel against its plain version off q3's shape, and duplicate
+    build keys refused."""
+    import torch
+    from repro_torch.kernels.join_probe import join_probe
+    for P, Bk, Pk, label in [(64, 2432, 9472, "SF 0.05 shape"),
+                             (4, 300, 1001, "Pk not a multiple of the block"),
+                             (3, 9000, 700, "Bk 9000, Pk 700")]:
+        check_join_probe(*synthetic_probe(P, Bk, Pk, gen, dev), label)
+    bk, bv, pk = synthetic_probe(3, 5000, 20000, gen, dev)
+    bk[1] = -1                        # all padding, integer payloads summed
+    bv[1] = torch.arange(5000, device=dev, dtype=torch.float32) % 97 - 48
+    check_join_probe(bk, bv, pk, "an all-padding partition")
+    check_join_probe(*colliding_probe(4000, 30000, gen, dev),
+                     "keys in one hash chain")
+    bk, bv, pk = synthetic_probe(2, 3000, 5000, gen, dev)
+    bv[:, ::3] = -0.0
+    check_join_probe(bk, bv, pk, "-0.0 payloads")
+    bk[1, 17] = bk[1, 400]
+    try:
+        join_probe(bk, bv, pk, mode="cuda")
+    except ValueError as e:
+        log(f"join_probe duplicate build keys: refused ({e})")
+    else:
+        raise AssertionError("join_probe took duplicate build keys")
 
 
 def kernel_phase(data, dev):
@@ -212,10 +285,7 @@ def kernel_phase(data, dev):
     big = max(probes, key=lambda c: c[0][2].numel() * c[0][0].shape[1])
     bk, bv, pk = big[0]
     probe_err = check_join_probe(bk, bv, pk, "q3 main-path inputs (SF1)")
-    for P, Bk, Pk, label in [(64, 2432, 9472, "SF 0.05 shape"),
-                             (4, 300, 1001, "Pk not a multiple of the block"),
-                             (3, 9000, 700, "Bk over two shared tiles")]:
-        check_join_probe(*synthetic_probe(P, Bk, Pk, gen, dev), label)
+    join_probe_edges(gen, dev)
     return aggs, agg_errs, big, probe_err
 
 
@@ -248,23 +318,30 @@ def time_hash_aggregate(args, kw, label):
 
 def time_join_probe(args, label):
     from repro_torch.kernels.join_probe import join_probe
+    from repro_torch.kernels.join_probe.ops import table_log2
     from repro_torch.kernels.join_probe.ref import join_probe_ref
     bk, bv, pk = args
     P, Bk = bk.shape
     Pk = pk.shape[1]
-    ms = cuda_ms(lambda: join_probe(bk, bv, pk, mode="cuda"), reps=5)
+    # the wrapper reads the duplicate flag back (one host sync a call), so
+    # the kernel's time is its device time; the events' time beside it
+    ms = device_ms(lambda: join_probe(bk, bv, pk, mode="cuda"), reps=20)
+    with_sync = cuda_ms(lambda: join_probe(bk, bv, pk, mode="cuda"),
+                        reps=20)
     plain = cuda_ms(lambda: join_probe_ref(bk, bv, pk), reps=1)
     n_bytes = 8 * P * Bk + 4 * P * Pk + 5 * P * Pk
     # The function's own work: build keys are unique apart from the -1
-    # padding, so a hashed or sorted probe inside each partition gives the
-    # same answer with one insert per build slot and one lookup per probe
-    # slot. The nested loop of join_probe.cu compares every (probe, build)
-    # pair instead; that count is reported apart, as the design's floor.
+    # padding, so one insert per build slot and one lookup per probe slot.
+    # The hashed design also clears its table (8 bytes an entry, 2^cap_log2
+    # >= 2 Bk entries a partition) once; that is reported apart, as the
+    # design's floor.
     b_ms, b_by = bound_ms(n_bytes, float(P * (Bk + Pk)))
-    design_ms = P * Pk * Bk / F32_OPS_PER_S * 1e3
+    design_ms = bound_ms(n_bytes + 8 * P * (1 << table_log2(Bk)),
+                         float(P * (Bk + Pk)))[0]
     return dict(shape=f"{label}: build ({P}, {Bk}), probe ({P}, {Pk})",
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, design_floor_ms=design_ms)
+                library_ms=None, design_floor_ms=design_ms,
+                ms_with_host_sync=with_sync)
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +811,29 @@ def dist_main_path(data, plain, oracle):
         log(f"device share [{c} {q}]: " + json.dumps(device_share(
             lambda: run_query(q, data, context=ctxs[c]))))
     return launches, warm, peak, sorted(overflowed)
+
+
+def dist_aggregate_call(data):
+    """The arguments of the largest hash_aggregate_multi call (by ids and
+    values moved) of the 7 queries under composed/INTERLEAVE, the
+    distributed context that launches it: one shard's rows."""
+    from repro_torch.analytics import columnar
+    from repro_torch.analytics.tpch import LOGICAL_QUERIES, run_query
+    calls = []
+    ctx = dist_contexts()["composed/INTERLEAVE"]
+    with capture(columnar, "hash_aggregate_multi", calls):
+        for q in LOGICAL_QUERIES:
+            run_query(q, data, context=ctx)
+    shapes = sorted({(tuple(a[0].shape), a[1].shape[2], kw["n_bins"])
+                     for a, kw in calls})
+    log(f"hash_aggregate under composed/INTERLEAVE: {len(calls)} calls, "
+        f"(ids shape, C, n_bins) {shapes}")
+
+    def moved(call):                  # ids and values read, tables written
+        (ids, vals), n_bins = call[0][:2], call[1]["n_bins"]
+        P, T, C = vals.shape
+        return P * T * (1 + C) + P * n_bins * C
+    return max(calls, key=moved)
 
 
 def device_share(fn):
@@ -1321,7 +1421,8 @@ def check_wkv6(r, k, v, w, u, label):
 def wkv6_edges(dev):
     """The kernel against its plain version off the prefill's shape: one
     step, a length that is no multiple of the chunk, the reduced model's
-    head of 16, one batch and head, and decays near 1 and near 0."""
+    head of 16, one batch and head, decays near 1 and near 0, and inputs
+    that are strided views off 16-byte alignment."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for shape, w_lo, w_hi, label in [
@@ -1335,6 +1436,15 @@ def wkv6_edges(dev):
                                               generator=gen)
         u = torch.randn(shape[2:], device=dev, generator=gen) * 0.5
         check_wkv6(r, k, v, w, u, label)
+    # heads cut from a wider activation at an offset of one float, with an
+    # odd time stride: read in place with 4-byte copies
+    B, S, H, N = 2, 300, 4, 64
+    wide = [torch.randn((B, S, 2 * H * N + 1), device=dev, generator=gen)
+            * 0.5 for _ in range(4)]
+    wide[3] = torch.sigmoid(wide[3])
+    r, k, v, w = (x[..., 1:1 + H * N].unflatten(-1, (H, N)) for x in wide)
+    u = torch.randn((H, N), device=dev, generator=gen) * 0.5
+    check_wkv6(r, k, v, w, u, "strided views off 16-byte alignment")
 
 
 def rwkv_phase(dev):
@@ -1488,6 +1598,9 @@ def main() -> int:
     check_results(results, oracle)
     for c, per_q in warm.items():
         log(f"warm ms per query [{c}]: {json.dumps(per_q)}")
+    log("forced join kernel, warm ms: " + "; ".join(
+        f"{q} kernel {warm['kernel'][q]!r} plain {warm['plain'][q]!r} "
+        f"cost {warm['cost'][q]!r}" for q in ("q3", "q5")))
     peak_line("single-device main path")
 
     radix_call = radix_phase(data, dev)
@@ -1501,6 +1614,11 @@ def main() -> int:
         data, results["plain"], oracle)
     for c, per_q in dist_warm.items():
         log(f"warm ms per query [{c}]: {json.dumps(per_q)}")
+    dist_agg = dist_aggregate_call(data)
+    dist_agg_time = time_hash_aggregate(
+        *dist_agg, f"largest call of one shard under composed/INTERLEAVE, "
+        f"{N_SHARDS} shards, SF1")
+    log(f"hash_aggregate distributed timing {json.dumps(dist_agg_time)}")
     peak_line(f"distributed path, {N_SHARDS} shards")
     del data, results
     w_phase(dev)
@@ -1516,7 +1634,7 @@ def main() -> int:
              replaces="src/repro/kernels/hash_aggregate/kernel.py:54",
              launches=launches["hash_aggregate_multi"], **head,
              launches_distributed=dist_launches["hash_aggregate_multi"],
-             other_shapes=[agg_times["q1"]]),
+             other_shapes=[agg_times["q1"], dist_agg_time]),
         dict(name="join_probe", route="cuda",
              source="src/repro_torch/kernels/csrc/join_probe.cu",
              replaces="src/repro/kernels/join_probe/kernel.py:40",

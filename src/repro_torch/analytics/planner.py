@@ -246,11 +246,13 @@ def choose_join(n_probe: int, n_build: int, ctx: ExecutionContext) -> str:
     """"sorted" (searchsorted gather) vs "kernel" (join_probe probe).
 
     The reference takes the kernel only where the MXU runs it. On the H100
-    the kernel is a nested-loop compare per partition: at q3's SF1 join it
-    takes 58.9 ms, while q3's whole plan on the sorted gather takes 2.0 ms
-    (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``, PERF.md). So the
-    port takes "sorted" unless ``ctx.join`` forces "kernel"; a hashed or
-    sorted probe kernel would have to be priced here again."""
+    the kernel is a hashed probe per partition, 0.17 ms at q3's SF1 join,
+    but the partition layout around it (two stable argsorts,
+    ``pad_partitions``, the scatter back in ``pkfk_join_kernel``) costs
+    more than the whole sorted plan: q3 takes 8.8 ms with the kernel forced
+    and 2.7-2.9 ms on the sorted gather (NVIDIA H100 80GB HBM3, 700 W;
+    ``chip_smoke.py``, PERF.md). So the port takes "sorted" unless
+    ``ctx.join`` forces "kernel"."""
     del n_probe, n_build
     return ctx.join or "sorted"
 

@@ -21,6 +21,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.config import resolve_device
+
 
 @dataclass(frozen=True)
 class ParamDef:
@@ -139,14 +141,16 @@ def _to_tensor(x: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def from_reference(tree: Any, device: Union[None, str, torch.device] = "cpu"
+def from_reference(tree: Any, device: Union[None, str, torch.device] = None
                    ) -> Any:
     """The reference's parameter or cache tree (nested dicts of arrays,
     e.g. ``jax.tree.map(np.asarray, params)``) as the port's tree of
-    tensors on ``device``. The layout is the same: stacked
-    ``blocks/sub{i}/...`` and ``blocks/...`` keep their leading layer axis
-    and ``tail{i}`` stays apart. Dtypes are kept (bfloat16 included)."""
-    dev = torch.device(device)
+    tensors on ``device`` (the CUDA device by default; it raises without
+    one, so pass ``device="cpu"`` for the CPU). The layout is the same:
+    stacked ``blocks/sub{i}/...`` and ``blocks/...`` keep their leading
+    layer axis and ``tail{i}`` stays apart. Dtypes are kept (bfloat16
+    included)."""
+    dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: from_reference(v, dev) for k, v in tree.items()}
     return _to_tensor(tree, dev)

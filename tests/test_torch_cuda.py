@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from _join_cases import CASES, case
 from repro_torch.analytics.columnar import segment_sum
 from repro_torch.kernels import common
 from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
 from repro_torch.kernels.join_probe import join_probe
+from repro_torch.kernels.join_probe.ref import join_probe_ref
 from repro_torch.kernels.radix_partition.ops import (block_histograms,
                                                      padded_bin_counts)
 from repro_torch.kernels.radix_partition.ref import block_histograms_ref
@@ -67,6 +69,52 @@ def test_cuda_join_probe_matches_plain(dev, P, Bk, Pk):
     got = join_probe(*(torch.from_numpy(x).to(dev) for x in (bk, bv, pk)))
     want = join_probe(*(torch.from_numpy(x) for x in (bk, bv, pk)))
     assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _f32_bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_join_probe_equals_plain_bits(dev, name):
+    """The hashed probe against the plain version, vals bit for bit (a
+    -0.0 payload included) and found, on the edge cases of _join_cases."""
+    bk, bv, pk = (torch.from_numpy(x).to(dev) for x in case(name))
+    before = common.LAUNCHES["join_probe"]
+    got_v, got_f = join_probe(bk, bv, pk)
+    assert common.LAUNCHES["join_probe"] == before + 1
+    want_v, want_f = join_probe_ref(bk, bv, pk)
+    assert torch.equal(_f32_bits(got_v), _f32_bits(want_v))
+    assert torch.equal(got_f, want_f)
+    again_v, _ = join_probe(bk, bv, pk)
+    assert torch.equal(_f32_bits(again_v), _f32_bits(got_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["first", "last", "padding around"])
+def test_cuda_join_probe_rejects_duplicate_build_keys(dev, where):
+    bk, bv, pk = case("no padding, probed with -1")
+    bk = bk.copy()
+    if where == "first":
+        bk[0, 1] = bk[0, 0]
+    elif where == "last":
+        bk[2, -2] = bk[2, -1]
+    else:
+        bk[1, :100] = -1                      # duplicate -1s are padding
+        bk[1, 200] = bk[1, 300]
+    with pytest.raises(ValueError, match="twice"):
+        join_probe(*(torch.from_numpy(x).to(dev) for x in (bk, bv, pk)))
+
+
+@pytest.mark.cuda
+def test_cuda_join_probe_takes_repeated_padding(dev):
+    """Many -1 build slots are padding, not duplicates."""
+    bk, bv, pk = case("all-padding partition")
+    got = join_probe(*(torch.from_numpy(x).to(dev) for x in (bk, bv, pk)))
+    want = join_probe(*(torch.from_numpy(x) for x in (bk, bv, pk)))
+    assert torch.equal(_f32_bits(got[0]).cpu(), _f32_bits(want[0]))
     assert torch.equal(got[1].cpu(), want[1])
 
 
@@ -231,3 +279,24 @@ def test_cuda_wkv6_rejects_other_head_sizes(dev):
     r, k, v, w, u = _wkv6_inputs(dev, (1, 8, 1, 48), 0.5, 0.9, 0)
     with pytest.raises(ValueError, match="head size"):
         wkv6(r, k, v, w, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", ["base off 16 bytes", "odd time stride"])
+def test_cuda_wkv6_reads_unaligned_strided_inputs(dev, cut):
+    """Views whose base pointer or stride is no multiple of 16 bytes take
+    the kernel's 4-byte copies and give the bits of contiguous copies."""
+    B, S, H, N = 2, 77, 4, 64
+    width = 2 * H * N + (1 if cut == "odd time stride" else 0)
+    start = 1 if cut == "base off 16 bytes" else 0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    wide = [torch.randn((B, S, width), device=dev, generator=gen) * 0.5
+            for _ in range(4)]
+    wide[3] = torch.sigmoid(wide[3])                      # decays in (0, 1)
+    r, k, v, w = (x[..., start:start + H * N].unflatten(-1, (H, N))
+                  for x in wide)
+    u = torch.randn((H, N), device=dev, generator=gen)
+    assert r.data_ptr() % 16 or r.stride(1) % 4
+    got = wkv6(r, k, v, w, u)
+    want = wkv6_ref(*(x.contiguous() for x in (r, k, v, w)), u)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

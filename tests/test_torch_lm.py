@@ -220,6 +220,22 @@ def test_default_device_raises_without_a_gpu():
             ["--arch", "recurrentgemma-2b", "--reduced"]))
 
 
+def test_from_reference_defaults_to_the_card():
+    """Carrying weights across lands them on the card unless the caller
+    asks for the CPU; without a card the default raises."""
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "blocks": {"n": np.zeros(4, np.int32)}}
+    if torch.cuda.is_available():
+        assert from_reference(tree)["w"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            from_reference(tree)
+    got = from_reference(tree, "cpu")
+    assert got["w"].device.type == "cpu"
+    assert torch.equal(got["w"], torch.from_numpy(tree["w"]))
+    assert got["blocks"]["n"].dtype == torch.int32
+
+
 # ---------------------------------------------------------------------------
 # the slice as a whole
 # ---------------------------------------------------------------------------
