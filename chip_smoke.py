@@ -98,7 +98,8 @@ def device_ms(fn, reps: int) -> float:
     """Mean device milliseconds of one call of ``fn``: the self time of
     every kernel, copy and memset it ran under torch.profiler, over
     ``reps`` calls after one warm-up. For a call that waits on the host
-    (a flag read back), where CUDA events around back-to-back calls would
+    (a flag read back), or that takes less device time than the host
+    needs to issue it, where CUDA events around back-to-back calls would
     also count the host's gaps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -115,6 +116,21 @@ def device_ms(fn, reps: int) -> float:
     if not busy:
         raise RuntimeError("torch.profiler saw no device time")
     return busy / 1e3 / reps
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds per call of ``fn``: a host clock around ``reps``
+    back-to-back calls with no synchronize, after one warm-up. Where this
+    exceeds the device time, the host's issue rate bounds the call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -275,7 +291,7 @@ def kernel_phase(data, dev):
                 for name, (args, kw) in aggs.items()}
     for P, T, C, nb, label in [(3, 10_000, 1, 200, "C=1, ids out of range"),
                                (1, 50_000, 6, 10_000, "one partition, "
-                                "3 bin tiles, ids out of range"),
+                                "bin tiles, ids out of range"),
                                (5, 777, 4, 64, "ragged rows")]:
         ids = torch.randint(-7, nb + 7, (P, T), device=dev,
                             dtype=torch.int32, generator=gen)
@@ -298,8 +314,14 @@ def time_hash_aggregate(args, kw, label):
     n_bins = kw["n_bins"]
     P, T = ids.shape
     C = vals.shape[2]
-    ms = cuda_ms(lambda: hash_aggregate_multi(ids, vals, n_bins=n_bins,
-                                              mode="cuda"), reps=20)
+    # device time under torch.profiler: the small distributed call takes
+    # less device time than the host needs to issue it, so CUDA events
+    # around back-to-back calls read the host; those events beside it
+    def run():
+        return hash_aggregate_multi(ids, vals, n_bins=n_bins, mode="cuda")
+    ms = device_ms(run, reps=20)
+    with_host = cuda_ms(run, reps=20)
+    us = host_us(run)
     plain = cuda_ms(lambda: hash_aggregate_multi_ref(ids, vals,
                                                      n_bins=n_bins), reps=5)
     # one library call for the same sums: index_add_ over p * n_bins + id
@@ -313,7 +335,8 @@ def time_hash_aggregate(args, kw, label):
     b_ms, b_by = bound_ms(n_bytes, P * T * C)
     return dict(shape=f"{label}: ids ({P}, {T}) int32, vals ({P}, {T}, {C}) "
                 f"f32, n_bins {n_bins}", ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                ms_with_host=with_host, host_us_per_call=us)
 
 
 def time_join_probe(args, label):
@@ -608,8 +631,14 @@ def time_block_histograms(args, kw, label):
     keys = args[0]
     n_bins, shift, block = kw["n_bins"], kw["shift"], kw["block"]
     N = keys.shape[0]
-    ms = cuda_ms(lambda: block_histograms(keys, n_bins=n_bins, shift=shift,
-                                          block=block, mode="cuda"), reps=50)
+    # device time under torch.profiler (the call is host-bound: CUDA events
+    # around back-to-back calls read the host's issue rate; kept beside it)
+    def run():
+        return block_histograms(keys, n_bins=n_bins, shift=shift, block=block,
+                                mode="cuda")
+    ms = device_ms(run, reps=50)
+    with_host = cuda_ms(run, reps=50)
+    us = host_us(run)
     plain = cuda_ms(lambda: block_histograms_ref(keys, n_bins=n_bins,
                                                  shift=shift, block=block),
                     reps=20)
@@ -622,7 +651,8 @@ def time_block_histograms(args, kw, label):
     b_ms, b_by = bound_ms(4 * N + 4 * n_blocks * n_bins, N)
     return dict(shape=f"{label}: keys ({N},) int32, n_bins {n_bins}, "
                 f"block {block}", ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+                bound_by=b_by, library_ms=lib, ms_with_host=with_host,
+                host_us_per_call=us)
 
 
 def r2_phase(data):

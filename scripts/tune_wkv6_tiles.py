@@ -24,29 +24,16 @@ import ctypes
 import json
 import os
 import re
-import subprocess
 import sys
-import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import _tune
+
 SHAPE = (2, 4096, 64, 64)
 TILE_LINE = "template <> struct Tile<64> : Cfg<64, {}, {}, {}, {}> {{}};"
 REPS = 20
 DEFAULT_TILES = "4,4,32,8 4,4,32,4 8,2,32,8 8,4,64,8 4,2,16,8 16,2,64,4"
-
-
-def cuda_ms(fn, reps: int) -> float:
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
 
 
 def compile_tiles(tiles):
@@ -58,50 +45,17 @@ def compile_tiles(tiles):
                           r"\{\};", src)
     if committed is None:
         raise RuntimeError("rwkv6_scan.cu has no Tile<64> line to replace")
-    out = os.path.join(ROOT, "build", "wkv6_tiles")
+    out = os.path.join(_tune.ROOT, "build", "wkv6_tiles")
     os.makedirs(out, exist_ok=True)
-    procs = {}
-    for tile in tiles:
-        name = "tile_" + "_".join(map(str, tile))
+    names = {tile: "tile_" + "_".join(map(str, tile)) for tile in tiles}
+    builds = {}
+    for tile, name in names.items():
         cu = os.path.join(out, name + ".cu")
         with open(cu, "w") as f:
             f.write(src.replace(committed.group(0), TILE_LINE.format(*tile)))
-        lib = os.path.join(out, f"lib{name}.so")
-        procs[tile] = (lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for tile, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for tile {tile}:\n{log}")
-        libs[tile] = (lib, ptxas_usage(log, "wkv6_fwdILi64ELi4E"))
-    return libs
-
-
-def ptxas_usage(log: str, kernel: str) -> str:
-    """ptxas -v's stack, spill and register lines for one kernel."""
-    for entry in log.split("Compiling entry function")[1:]:
-        if kernel in entry.splitlines()[0]:
-            return "; ".join(line.split(":", 1)[-1].strip()
-                             for line in entry.splitlines()[1:]
-                             if "bytes stack" in line or "Used" in line)
-    return "not reported"
-
-
-def sm_clock() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,"
-                           "clocks.max.sm,power.draw", "--format=csv,"
-                           "noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip()
-
-
-def bind(path):
-    fn = ctypes.CDLL(path).wkv6_fwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-    return fn
+        builds[name] = (cu, [])
+    libs = _tune.compile_all(builds, "wkv6_tiles", "wkv6_fwdILi64ELi4E")
+    return {tile: libs[name] for tile, name in names.items()}
 
 
 def main() -> int:
@@ -110,24 +64,16 @@ def main() -> int:
                     help="space-separated G,C,JT,NB tiles")
     args = ap.parse_args()
     import torch
-    if not torch.cuda.is_available():
-        print("tune_wkv6_tiles: no CUDA device", file=sys.stderr)
+    dev = _tune.cuda_device("tune_wkv6_tiles")
+    if dev is None:
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels.rwkv6_scan import wkv6
     from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(f"card: {card}", flush=True)
+    print(f"card: {_tune.card_line()}", flush=True)
     tiles = [tuple(int(x) for x in t.split(",")) for t in args.tiles.split()]
-    t0 = time.perf_counter()
     libs = compile_tiles(tiles)
-    print(f"compiled {len(tiles)} tiles in {time.perf_counter() - t0:.1f} s",
-          flush=True)
 
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     r, k, v = (torch.randn(SHAPE, device=dev, generator=gen) * 0.5
                for _ in range(3))
@@ -138,11 +84,11 @@ def main() -> int:
     y = torch.empty(SHAPE, device=dev)
     s_out = torch.empty((B, H, N, N), device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    committed = cuda_ms(lambda: wkv6(r, k, v, w, u, mode="cuda"), REPS)
+    committed = _tune.cuda_ms(lambda: wkv6(r, k, v, w, u, mode="cuda"), REPS)
     print(json.dumps({"tile": "committed (wrapper)", "ms": committed}),
           flush=True)
     for tile, (path, usage) in libs.items():
-        fn = bind(path)
+        fn = _tune.bind(path, "wkv6_fwd_launch", ARGTYPES)
 
         def run():
             rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -155,11 +101,8 @@ def main() -> int:
         run()
         torch.cuda.synchronize()
         equal = torch.equal(y, want_y) and torch.equal(s_out, want_s)
-        ms = cuda_ms(run, REPS)
-        for _ in range(int(500 / ms)):          # ~0.5 s under load
-            run()
-        clock = sm_clock()
-        torch.cuda.synchronize()
+        ms = _tune.cuda_ms(run, REPS)
+        clock = _tune.clock_under_load(run, ms)
         rec = {"tile": dict(zip(("G", "C", "JT", "NB"), tile)), "ms": ms,
                "bit_equal": equal, "ptxas": usage,
                "sm_clock_max_power_under_load": clock}

@@ -11,6 +11,7 @@ the plain ``ref.decode_attention_ref`` on every device.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -23,7 +24,9 @@ from repro_torch.kernels.flash_attention.ref import attention_chunked
 HEAD_DIMS = (64, 128, 256)        # the kernel's instantiations
 
 
+@functools.cache
 def _bind():
+    """The C entry point with its argument types, bound once."""
     fn = build.library("flash_attention").flash_attention_fwd_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
@@ -56,6 +59,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # the kernel reads q with float4 loads and copies k, v rows with bulk
+    # copies, which need 16-byte aligned bases: a view off alignment is
+    # copied to a fresh allocation
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     fn = _bind()
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,

@@ -8,6 +8,7 @@ version (``ref.py``). There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -21,7 +22,9 @@ from repro_torch.kernels.radix_partition.ref import (block_histograms_ref,
 MAX_BINS = 256            # the kernel's shared-memory histogram width
 
 
+@functools.cache
 def _bind():
+    """The C entry point with its argument types, bound once."""
     lib = build.library("radix_partition")
     fn = lib.block_histograms_launch
     fn.restype = ctypes.c_int

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _agg_order import kernel_order_sums, q18_like
 from _join_cases import CASES, case
 from repro_torch.analytics.columnar import segment_sum
 from repro_torch.kernels import common
@@ -53,6 +54,121 @@ def test_cuda_hash_aggregate_matches_plain_and_is_deterministic(
     want = hash_aggregate_multi(ids_t.cpu(), vals_t.cpu(), n_bins=n_bins)
     assert torch.equal(a, b)                      # no float atomics
     np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-2)
+
+
+def _agg_case(name):
+    """(ids (P, T) int32, vals (P, T, C) float32, n_bins) as numpy arrays."""
+    kind, _, arg = name.partition(" ")
+    rng = np.random.RandomState(len(name))
+    if kind == "C":                      # private tables, C = 1..8
+        C = int(arg)
+        ids = rng.randint(-3, 131, (2, 5000)).astype(np.int32)
+        return ids, (rng.randn(2, 5000, C) * 100).astype(np.float32), 128
+    if kind == "owned":                  # one shared table, bins by warp
+        ids = rng.randint(-3, 5003, (2, 9_999)).astype(np.int32)
+        return ids, (rng.randn(2, 9_999, 3) * 100).astype(np.float32), 5000
+    if kind == "tile-edge":              # two bin tiles at C = 8
+        ids = rng.randint(4_900, 5_100, (1, 20_000)).astype(np.int32)
+        return ids, (rng.randn(1, 20_000, 8) * 100).astype(np.float32), 6000
+    if kind == "one-bin":                # every row in one bin
+        n_bins = int(arg)
+        ids = np.full((2, 50_000), 11, np.int32)
+        vals = (rng.randint(1, 51, (2, 50_000, 2))
+                * rng.uniform(900, 2100, (2, 50_000, 1))).astype(np.float32)
+        return ids, vals, n_bins
+    if kind == "zeros":                  # out of range, +-0 rows and values
+        ids = rng.randint(-5, 305, (3, 4097)).astype(np.int32)
+        vals = (rng.randn(3, 4097, 3) * 100).astype(np.float32)
+        vals[:, ::3] = -0.0
+        vals[:, 1::7, 1] = -0.0
+        vals[:, 2::11] = 0.0
+        return ids, vals, 300
+    if kind == "ragged":                 # T not a multiple of the batch
+        T = int(arg)
+        ids = rng.randint(0, 64, (1, T)).astype(np.int32)
+        return ids, (rng.randn(1, T, 2) * 100).astype(np.float32), 64
+    ids, vals = q18_like(7)              # "q18": two partitions of q18's,
+    ids2, vals2 = q18_like(8, in_order=kind == "q18-in-order")
+    return np.stack([ids, ids2]), np.stack([vals, vals2]), 23_552
+
+
+def _f64_sums(ids, vals, n_bins):
+    """(P, n_bins, C) float64 sums; ids out of range add nothing."""
+    P, T, C = vals.shape
+    slot = np.where((ids >= 0) & (ids < n_bins), ids, n_bins)
+    flat = (slot + (n_bins + 1) * np.arange(P)[:, None]).reshape(-1)
+    out = torch.zeros((P * (n_bins + 1), C), dtype=torch.float64)
+    out.index_add_(0, torch.from_numpy(flat),
+                   torch.from_numpy(vals.reshape(-1, C).astype(np.float64)))
+    return out.reshape(P, n_bins + 1, C)[:, :n_bins]
+
+
+AGG_CASES = ([f"C {c}" for c in range(1, 9)]
+             + ["owned", "tile-edge", "one-bin 128", "one-bin 23552",
+                "zeros", "ragged 1025", "ragged 3000", "q18",
+                "q18-in-order"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", AGG_CASES)
+def test_cuda_hash_aggregate_gives_the_order_models_bits(dev, name):
+    ids, vals, n_bins = _agg_case(name)
+    ids_t = torch.from_numpy(ids).to(dev)
+    vals_t = torch.from_numpy(vals).to(dev)
+    a = hash_aggregate_multi(ids_t, vals_t, n_bins=n_bins)
+    b = hash_aggregate_multi(ids_t, vals_t, n_bins=n_bins)
+    assert torch.equal(a, b)                      # two runs, the same bits
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    model = kernel_order_sums(ids_t, vals_t, n_bins, n_sms=n_sms)
+    assert torch.equal(a.cpu().view(torch.int32), model.view(torch.int32))
+    # within 1e-5 of the float64 sums, relative to the sums of |values|
+    want = _f64_sums(ids, vals, n_bins)
+    scale = _f64_sums(ids, np.abs(vals), n_bins)
+    assert bool(((a.cpu().double() - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_cuda_hash_aggregate_paths_agree_on_renamed_bins(dev):
+    """Renaming the bins renames the sums, bit for bit: in order, most of
+    a batch's bins are held by two groups (runs across a group's edge) and
+    go the ordered way; renamed at random nearly none are."""
+    ids, vals, n_bins = _agg_case("q18-in-order")
+    perm = np.random.RandomState(5).permutation(n_bins)
+    v = torch.from_numpy(vals).to(dev)
+    a = hash_aggregate_multi(torch.from_numpy(ids).to(dev), v,
+                             n_bins=n_bins).cpu()
+    b = hash_aggregate_multi(torch.from_numpy(perm[ids].astype(np.int32))
+                             .to(dev), v, n_bins=n_bins).cpu()
+    assert torch.equal(b[:, torch.from_numpy(perm)].view(torch.int32),
+                       a.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_hash_aggregate_zero_rows_change_nothing(dev):
+    """A row whose values are all +-0 gives the bits of a row whose id is
+    out of range, and no sum is -0."""
+    ids, vals, n_bins = _agg_case("zeros")
+    zero = ~(vals != 0).any(axis=2)
+    moved = np.where(zero, n_bins + 9, ids).astype(np.int32)
+    got = [hash_aggregate_multi(torch.from_numpy(i).to(dev),
+                                torch.from_numpy(vals).to(dev),
+                                n_bins=n_bins).cpu() for i in (ids, moved)]
+    assert torch.equal(got[0].view(torch.int32), got[1].view(torch.int32))
+    assert not bool(torch.signbit(got[0][got[0] == 0]).any())
+
+
+@pytest.mark.cuda
+def test_cuda_hash_aggregate_splits_wide_columns(dev):
+    rng = np.random.RandomState(11)
+    ids = torch.from_numpy(rng.randint(0, 100, (2, 3000)).astype(np.int32))
+    vals = torch.from_numpy((rng.randn(2, 3000, 11) * 100)
+                            .astype(np.float32))
+    before = common.LAUNCHES["hash_aggregate_multi"]
+    got = hash_aggregate_multi(ids.to(dev), vals.to(dev), n_bins=100)
+    assert common.LAUNCHES["hash_aggregate_multi"] == before + 2
+    want = hash_aggregate_multi(ids, vals, n_bins=100)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-2)
 
 
@@ -163,10 +279,11 @@ ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (14, 2), (10, 1)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2), (14, 2), (10, 1)])
 @pytest.mark.parametrize("S,window,q_offset", [(300, None, 0),
                                                (257, 37, 0),
-                                               (130, 16, 70)])
+                                               (130, 16, 70),
+                                               (129, 1, 0)])
 def test_cuda_flash_attention_matches_plain(dev, D, Hq, Hkv, S, window,
                                             q_offset):
     gen = torch.Generator(device=dev).manual_seed(D + Hq + S)
@@ -183,7 +300,7 @@ def test_cuda_flash_attention_matches_plain(dev, D, Hq, Hkv, S, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_cuda_flash_attention_rows_without_keys_are_zero(dev, D):
     gen = torch.Generator(device=dev).manual_seed(D)
     q = torch.randn((1, 70, 2, D), device=dev, generator=gen)
@@ -198,6 +315,27 @@ def test_cuda_flash_attention_rows_without_keys_are_zero(dev, D):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **ATTN_TOL)
     assert torch.equal(got[:, 60:], torch.zeros_like(got[:, 60:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", ["q", "k", "v", "all"])
+def test_cuda_flash_attention_takes_unaligned_inputs(dev, off):
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def make(shape, cut):
+        # a contiguous view one float past a fresh allocation's base
+        n = int(np.prod(shape))
+        t = torch.randn(n + 1, device=dev, generator=gen)
+        return t[1:].view(shape) if cut else t[:n].view(shape)
+
+    q = make((2, 131, 4, 128), off in ("q", "all"))
+    k = make((2, 131, 2, 128), off in ("k", "all"))
+    v = make((2, 131, 2, 128), off in ("v", "all"))
+    assert any(t.data_ptr() % 16 for t in (q, k, v))
+    got = flash_attention(q, k, v, window=40)
+    want = attention_chunked(q, k, v, window=40)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
 
 
 @pytest.mark.cuda

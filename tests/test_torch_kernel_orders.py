@@ -14,15 +14,23 @@ is the design each kernel's exactness rests on:
   built by linear probing from ``ops.hash_slot``. A numpy model of that
   table gives the plain version's bits on the edge cases, and the plain
   version gives the reference's answers on them.
+* ``hash_aggregate_multi`` (``csrc/hash_aggregate.cu``) adds its rows in an
+  order fixed by the data and its launch plan: trees over the peers of
+  32-row groups, group sums in group order, chunks in chunk order. The
+  torch model of that order (``tests/_agg_order.py``, whose bits the kernel
+  gives on a card) holds float64 sums within 1e-5 on q18-like inputs, and
+  its bits depend on a partition's own rows alone.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _agg_order import kernel_order_sums, q18_like
 from _join_cases import CASES, SF1_BK, case, colliding_keys
 from repro.kernels.join_probe.ref import join_probe_ref as jax_join_ref
 from repro_torch.analytics.hashing import partition_of
+from repro_torch.kernels.hash_aggregate.ops import launch_plan
 from repro_torch.kernels.join_probe.ops import (hash_slot, join_probe,
                                                 table_log2)
 from repro_torch.kernels.rwkv6_scan.ref import pairwise_sum, wkv6_ref
@@ -246,3 +254,86 @@ def test_hash_spreads_the_keys_of_one_partition():
         walks.append(((i - s0) & ((1 << b) - 1)) + 1)
     assert np.mean(walks) < 2.0 and max(walks) < 40
     assert np.unique(starts).size > (1 << b) // 4
+
+
+Q18_PLAN = launch_plan(64, 187_648, 2, 23_552, n_sms=132)   # q18 at SF1
+
+
+def agg_inputs(kind):
+    """(ids (P, T), vals (P, T, C), n_bins, plan) as torch tensors."""
+    if kind == "q18-like":                  # two partitions of q18's call
+        parts = [q18_like(seed) for seed in (0, 1)]
+        ids, vals = (np.stack(x) for x in zip(*parts))
+        return torch.from_numpy(ids), torch.from_numpy(vals), 23_552, \
+            Q18_PLAN
+    rng = np.random.RandomState(3)
+    if kind == "all-one-bin":               # one bin takes every row
+        ids, vals = q18_like(2)
+        vals = np.abs(vals) + 1.0
+        return torch.full((1, ids.shape[0]), 7, dtype=torch.int32), \
+            torch.from_numpy(vals[None]), 23_552, Q18_PLAN
+    # "q1-like": private tables, 6 groups, 2% masked rows, C = 5
+    ids = rng.randint(0, 6, (2, 100_000)).astype(np.int32)
+    qty = rng.randint(1, 51, (2, 100_000)).astype(np.float32)
+    price = qty * rng.uniform(900, 2100, qty.shape).astype(np.float32)
+    vals = np.stack([qty, price, price * 0.95, price * 0.97,
+                     np.ones_like(qty)], axis=2).astype(np.float32)
+    vals[rng.rand(2, 100_000) < 0.02] = 0.0
+    ids, vals = torch.from_numpy(ids), torch.from_numpy(vals)
+    return ids, vals, 128, launch_plan(2, 100_000, 5, 128, n_sms=132)
+
+
+def f64_sums(ids, vals, n_bins):
+    P, T, C = vals.shape
+    out = torch.zeros((P, n_bins, C), dtype=torch.float64)
+    for p in range(P):
+        ok = (ids[p] >= 0) & (ids[p] < n_bins)
+        out[p].index_add_(0, ids[p][ok].long(), vals[p][ok].double())
+    return out
+
+
+@pytest.mark.parametrize("kind", ["q18-like", "all-one-bin", "q1-like"])
+def test_aggregate_order_holds_float64(kind):
+    ids, vals, n_bins, plan = agg_inputs(kind)
+    got = kernel_order_sums(ids, vals, n_bins, plan=plan)
+    want = f64_sums(ids, vals, n_bins)
+    scale = f64_sums(ids, vals.abs(), n_bins)
+    assert kind == "q1-like" or not plan[3]          # q18's wide table
+    err = (got.double() - want).abs()
+    assert bool((err <= 1e-5 * scale).all()), float((err / scale).max())
+
+
+@pytest.mark.parametrize("kind", ["q18-like", "q1-like"])
+def test_aggregate_order_depends_on_the_data_alone(kind):
+    ids, vals, n_bins, plan = agg_inputs(kind)
+    got = kernel_order_sums(ids, vals, n_bins, plan=plan)
+    # a partition's sums are its own rows' alone: swapping partitions
+    # swaps the results bit for bit
+    swap = kernel_order_sums(ids.flip(0), vals.flip(0), n_bins, plan=plan)
+    assert np.array_equal(bits(swap), bits(got.flip(0)))
+    # renaming the bins renames the sums: the order does not follow bin
+    # labels (the kernel's in-order runs and its general path agree)
+    perm = torch.from_numpy(np.random.RandomState(5).permutation(n_bins))
+    renamed = kernel_order_sums(perm[ids.long()].to(torch.int32), vals,
+                                n_bins, plan=plan)
+    assert np.array_equal(bits(renamed[:, perm]), bits(got))
+    # a row whose values are all +-0 is a row that is not there
+    zero = torch.zeros(ids.shape, dtype=torch.bool)
+    zero[:, 5::97] = True
+    v0 = vals.clone()
+    v0[zero] = 0.0
+    v0[:, 5::194] = -0.0
+    moved = torch.where(zero, n_bins + 3, ids)
+    a = kernel_order_sums(ids, v0, n_bins, plan=plan)
+    b = kernel_order_sums(moved, v0, n_bins, plan=plan)
+    assert np.array_equal(bits(a), bits(b))
+    assert not bool(torch.signbit(a[a == 0]).any())
+
+
+def test_aggregate_order_check_has_teeth():
+    """The rows' order within a group shows in the bits: the model is not
+    an order-free sum."""
+    ids, vals, n_bins, plan = agg_inputs("all-one-bin")
+    got = kernel_order_sums(ids, vals, n_bins, plan=plan)
+    rev = kernel_order_sums(ids, vals.flip(1), n_bins, plan=plan)
+    assert not np.array_equal(bits(got), bits(rev))

@@ -14,7 +14,7 @@ from repro.kernels.hash_aggregate import hash_aggregate_multi as ref_agg
 from repro.kernels.join_probe import join_probe as ref_probe
 from repro_torch.kernels import common
 from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
-from repro_torch.kernels.hash_aggregate.ops import launch_plan
+from repro_torch.kernels.hash_aggregate.ops import launch_plan, smem_bytes
 from repro_torch.kernels.join_probe import join_probe
 from repro_torch.kernels.join_probe.ref import join_probe_ref
 
@@ -116,7 +116,12 @@ def test_forced_cuda_mode_on_cpu_tensors_raises_instead_of_falling_back():
                                           (64, 187_648, 2, 23_552),
                                           (1, 100, 1, 128)])
 def test_hash_aggregate_launch_plan_fits_shared_memory(P, T, C, n_bins):
-    tile_bins, n_chunks, rows = launch_plan(P, T, C, n_bins, n_sms=132)
-    assert tile_bins * C <= 24_576                 # 96 KB table budget
+    tile_bins, n_chunks, rows, private = launch_plan(P, T, C, n_bins,
+                                                     n_sms=132)
+    # the table(s) and the STAGES staged batches fit one block's shared
+    # memory
+    assert smem_bytes(tile_bins, C, private) <= 232_448
     assert n_chunks * rows >= T > (n_chunks - 1) * rows
     assert n_chunks >= 1 and 1 <= tile_bins <= n_bins
+    if n_bins == 23_552:                           # q18: one tile, rows read once
+        assert tile_bins == n_bins and not private
