@@ -623,9 +623,36 @@ def radix_phase(data, dev):
     return max(calls, key=lambda c: c[0][0].shape[0])
 
 
-def time_block_histograms(args, kw, label):
+def start_no_work_build():
+    """Start nvcc on block_histograms' launch-floor build (``-DBH_NO_WORK``:
+    the kernel's grid, zeros written, no key read), beside the kernels'
+    own build. Returns (process, library path)."""
+    from repro_torch.kernels import build
+    out = build.build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libradix_partition_no_work.so"
+    src = build.CSRC / build.SOURCES["radix_partition"]
+    proc = subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-DBH_NO_WORK",
+                             "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def finish_no_work_build(started):
+    proc, lib = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the no-work build:\n{out}")
+    return lib
+
+
+def time_block_histograms(args, kw, label, no_work_lib):
+    import ctypes
     import torch
+    from repro_torch.kernels.common import stream_handle
     from repro_torch.kernels.radix_partition import block_histograms
+    from repro_torch.kernels.radix_partition.ops import _bind
     from repro_torch.kernels.radix_partition.ref import (block_histograms_ref,
                                                          radix_digits)
     keys = args[0]
@@ -637,6 +664,19 @@ def time_block_histograms(args, kw, label):
         return block_histograms(keys, n_bins=n_bins, shift=shift, block=block,
                                 mode="cuda")
     ms = device_ms(run, reps=50)
+    # the launch floor: the same grid writing zeros, no key read
+    floor_fn = getattr(ctypes.CDLL(str(no_work_lib)),
+                       "block_histograms_launch")
+    floor_fn.restype, floor_fn.argtypes = ctypes.c_int, _bind().argtypes
+    zeros = torch.empty((N // block, n_bins), dtype=torch.int32,
+                        device=keys.device)
+
+    def floor():
+        rc = floor_fn(keys.data_ptr(), zeros.data_ptr(), N // block, block,
+                      n_bins, shift, stream_handle(keys.device))
+        if rc != 0:
+            raise RuntimeError(f"no-work build: CUDA error {rc}")
+    no_work = device_ms(floor, reps=50)
     with_host = cuda_ms(run, reps=50)
     us = host_us(run)
     plain = cuda_ms(lambda: block_histograms_ref(keys, n_bins=n_bins,
@@ -652,7 +692,7 @@ def time_block_histograms(args, kw, label):
     return dict(shape=f"{label}: keys ({N},) int32, n_bins {n_bins}, "
                 f"block {block}", ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib, ms_with_host=with_host,
-                host_us_per_call=us)
+                host_us_per_call=us, no_work_ms=no_work)
 
 
 def r2_phase(data):
@@ -1093,17 +1133,21 @@ def check_attention(q, k, v, label, window=None, q_offset=0, scale=None):
 
 def check_scan(a, b, label, chunk=None):
     """Through the dispatching wrapper; a chunk other than the kernel's own
-    goes to the launcher, which alone takes one."""
+    goes to the launcher, which alone takes one. The kernel's order is
+    fixed, so two runs must give the same bits."""
+    import torch
     from repro_torch.kernels.rglru_scan.ops import CHUNK, _launch, linear_scan
     from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
     if chunk is None:
-        got = linear_scan(a, b, mode="cuda")
+        got, again = (linear_scan(a, b, mode="cuda") for _ in range(2))
     else:
-        got = _launch(a, b, chunk=chunk)
+        got, again = (_launch(a, b, chunk=chunk) for _ in range(2))
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"rglru_scan {label}: two runs differ")
     want = linear_scan_sequential(a, b)
     err, rel = held(got, want, KERNEL_TOL, f"rglru_scan {label}")
     log(f"rglru_scan {label}: {tuple(a.shape)} chunk {chunk or CHUNK}: "
-        f"max_abs_err {err!r} limit share {rel!r}")
+        f"max_abs_err {err!r} limit share {rel!r}, two runs bit-equal")
     return err
 
 
@@ -1138,6 +1182,11 @@ def lm_kernel_edges(dev):
                                 ((3, 1000, 130), 7, "chunk 7")]:
         a = torch.rand(shape, device=dev, generator=gen) * 0.98 + 0.01
         check_scan(a, rnd(*shape), label, chunk)
+    # the RG-LRU's own regime: decays near 1, b scaled by sqrt(1 - a^2)
+    a = torch.rand((2, 4096, 2560), device=dev, generator=gen) * 0.00099 \
+        + 0.999
+    b = rnd(2, 4096, 2560) * torch.sqrt(1 - a.double() ** 2).float()
+    check_scan(a, b, "near-1 decays (a in [0.999, 0.99999])")
 
 
 def device_breakdown(fn):
@@ -1375,6 +1424,8 @@ def lm_phase(dev):
                                         + 2 * B * Skv * Hkv * D),
                                    4.0 * D * pairs)
         sc_ms = cuda_ms(lambda: linear_scan(a, b, mode="cuda"), reps=20)
+        sc_device = device_ms(lambda: linear_scan(a, b, mode="cuda"),
+                              reps=20)
         sc_plain = cuda_ms(lambda: linear_scan_sequential(a, b), reps=2)
         sc_bound, sc_by = bound_ms(3 * 4 * a.numel(), 2.0 * a.numel())
     fa_time = dict(shape=f"prefill local attention: q ({B}, {Sq}, {Hq}, "
@@ -1383,8 +1434,8 @@ def lm_phase(dev):
                    plain_ms=fa_plain, bound_ms=fa_bound, bound_by=fa_by,
                    library_ms=fa_lib, library_max_abs_err=sdpa_err)
     sc_time = dict(shape=f"prefill RG-LRU scan: a/b {tuple(a.shape)} f32",
-                   ms=sc_ms, plain_ms=sc_plain, bound_ms=sc_bound,
-                   bound_by=sc_by, library_ms=None)
+                   ms=sc_ms, device_ms=sc_device, plain_ms=sc_plain,
+                   bound_ms=sc_bound, bound_by=sc_by, library_ms=None)
     log(f"flash_attention timing {json.dumps(fa_time)}")
     log(f"rglru_scan timing {json.dumps(sc_time)}")
     del q, k, v, a, b, qt, kt, vt, mask, fa_calls, scan_calls
@@ -1601,8 +1652,11 @@ def main() -> int:
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    no_work_build = start_no_work_build()
     seconds = build.build()
-    log(f"build: {seconds:.3f} s for {sorted(build.SOURCES)}")
+    no_work_lib = finish_no_work_build(no_work_build)
+    log(f"build: {seconds:.3f} s for {sorted(build.SOURCES)} and "
+        f"block_histograms' no-work build")
     for name in build.SOURCES:
         log(build.log_path(name).read_text().strip())
 
@@ -1636,7 +1690,7 @@ def main() -> int:
     radix_call = radix_phase(data, dev)
     radix_time = time_block_histograms(
         *radix_call, f"q3 lineitem owners of one shard at SF1, "
-        f"{N_SHARDS} shards")
+        f"{N_SHARDS} shards", no_work_lib)
     log(f"block_histograms timing {json.dumps(radix_time)}")
     r2_phase(data)
     peak_line("block_histograms vs plain, R2")

@@ -10,6 +10,7 @@ training).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -19,10 +20,14 @@ from repro_torch.kernels.common import (check_input, count_launch,
                                         kernel_mode, stream_handle)
 from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
 
-CHUNK = 64                        # time steps per chunk of the kernel
+CHUNK = 32           # steps a warp's run covers before a carry enters
+MAX_CHUNK = 96       # a block stages 2 x WARPS x chunk rows of 128 bytes
+WARPS = 8            # runs a block: the kernel's kWarps
 
 
+@functools.cache
 def _bind():
+    """The C entry point with its argument types, bound once."""
     fn = build.library("rglru_scan").rglru_scan_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -33,25 +38,27 @@ def _bind():
 def _launch(a: torch.Tensor, b: torch.Tensor, *,
             chunk: int = CHUNK) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous float32 a, b (B, S, D) on one
-    CUDA device. Returns h (B, S, D) float32."""
+    CUDA device, runs of ``chunk`` steps (``tests/_scan_order.py`` gives
+    its bits). Returns h (B, S, D) float32."""
     dev = a.device
     if a.dim() != 3:
         raise ValueError(f"a must be (B, S, D), got {tuple(a.shape)}")
     B, S, D = a.shape
     check_input(a, "a", torch.float32, (B, S, D), dev)
     check_input(b, "b", torch.float32, (B, S, D), dev)
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    nc = -(-S // chunk)
-    prod = torch.empty((B, nc, D), dtype=torch.float32, device=dev)
-    carry = torch.empty((B, nc, D), dtype=torch.float32, device=dev)
+    # the chain's words (B, chunks, D), then the ticket; the launcher zeroes
+    # them on the stream before the kernel
+    nc = -(-S // (WARPS * chunk))
+    words = torch.empty(B * nc * D + 1, dtype=torch.int64, device=dev)
     fn = _bind()
     with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), prod.data_ptr(),
-                carry.data_ptr(), B, S, D, chunk, stream_handle(dev))
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), None,
+                words.data_ptr(), B, S, D, chunk, stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {rc}")
     count_launch("rglru_scan")

@@ -12,6 +12,7 @@ import torch
 
 from _agg_order import kernel_order_sums, q18_like
 from _join_cases import CASES, case
+from _scan_order import kernel_order_scan
 from repro_torch.analytics.columnar import segment_sum
 from repro_torch.kernels import common
 from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
@@ -23,6 +24,7 @@ from repro_torch.kernels.radix_partition.ref import block_histograms_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_chunked
 from repro_torch.kernels.rglru_scan import linear_scan
+from repro_torch.kernels.rglru_scan.ops import CHUNK as SCAN_RUN
 from repro_torch.kernels.rglru_scan.ops import _launch as scan_launch
 from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
 from repro_torch.kernels.rwkv6_scan import wkv6
@@ -256,6 +258,57 @@ def test_cuda_block_histograms_equal_plain(dev, n_bins, shift, block):
                                   np.bincount(digits, minlength=n_bins))
 
 
+def _hist_keys(seed, n):
+    rng = np.random.RandomState(seed)
+    keys = rng.randint(-(1 << 31), (1 << 31) - 1, n, dtype=np.int64)
+    keys = keys.astype(np.int32)
+    keys[::5] = -1                             # the routing padding key
+    return keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", [1 << k for k in range(9)])
+@pytest.mark.parametrize("block", [1, 3, 100])
+def test_cuda_block_histograms_take_any_block(dev, n_bins, block):
+    """Every bin count of the kernel's two paths at block sizes off the
+    int4 loads (1, 3) or off a warp's multiple (100), every shift."""
+    k = torch.from_numpy(_hist_keys(n_bins + block, block * 333)).to(dev)
+    for shift in (0, 1, 13, 24, 31):
+        got = block_histograms(k, n_bins=n_bins, shift=shift, block=block)
+        want = block_histograms_ref(k, n_bins=n_bins, shift=shift,
+                                    block=block)
+        assert got.dtype == torch.int32 and torch.equal(got, want), shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks,block", [(1, 256), (1, 1000),
+                                            (1 << 20, 16)])
+@pytest.mark.parametrize("n_bins", [8, 32, 256])
+def test_cuda_block_histograms_one_block_and_many(dev, n_blocks, block,
+                                                  n_bins):
+    """One histogram block (one warp of one CUDA block at work), and
+    2^20 of them (the grid-stride loop past one wave)."""
+    k = torch.from_numpy(_hist_keys(n_blocks, n_blocks * block)).to(dev)
+    got = block_histograms(k, n_bins=n_bins, shift=3, block=block)
+    want = block_histograms_ref(k, n_bins=n_bins, shift=3, block=block)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins", [8, 256])
+def test_cuda_block_histograms_read_unaligned_keys(dev, n_bins):
+    """A view one int into its buffer is not 16-byte aligned: the kernel
+    takes its scalar path and gives the aligned copy's counts."""
+    buf = torch.from_numpy(_hist_keys(n_bins, 256 * 977 + 1)).to(dev)
+    k = buf[1:]
+    assert k.data_ptr() % 16 and k.is_contiguous()
+    got = block_histograms(k, n_bins=n_bins, shift=0, block=256)
+    want = block_histograms_ref(k, n_bins=n_bins, shift=0, block=256)
+    assert torch.equal(got, want)
+    assert torch.equal(got, block_histograms(k.clone(), n_bins=n_bins,
+                                             shift=0, block=256))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,groups,width", [(6_000_000, 6, 1),
                                             (6_000_000, 1_500_000, 2)])
@@ -340,13 +393,13 @@ def test_cuda_flash_attention_takes_unaligned_inputs(dev, off):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 257, 4096])
-@pytest.mark.parametrize("chunk", [64, 7])
+@pytest.mark.parametrize("chunk", [SCAN_RUN, 64, 7])
 def test_cuda_linear_scan_matches_plain(dev, S, chunk):
     gen = torch.Generator(device=dev).manual_seed(S + chunk)
     a = torch.rand((2, S, 300), device=dev, generator=gen) * 0.98 + 0.01
     b = torch.randn((2, S, 300), device=dev, generator=gen)
     before = common.LAUNCHES["rglru_scan"]
-    got = (linear_scan(a, b) if chunk == 64
+    got = (linear_scan(a, b) if chunk == SCAN_RUN
            else scan_launch(a, b, chunk=chunk))
     assert common.LAUNCHES["rglru_scan"] == before + 1
     want = linear_scan_sequential(a, b)
@@ -363,6 +416,56 @@ def test_cuda_linear_scan_carries_across_chunks(dev):
     got = scan_launch(a, b, chunk=64)
     want = torch.arange(1, 201, device=dev, dtype=torch.float32)
     assert torch.equal(got[0], want[:, None].expand(200, 130))
+
+
+def _scan_bits(x):
+    return x.contiguous().view(torch.int32).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 255, 256, 257, 4097])
+@pytest.mark.parametrize("D", [1, 31, 300, 2560])
+def test_cuda_linear_scan_gives_the_order_models_bits(dev, S, D):
+    """Bit-equal on two runs and to tests/_scan_order.py: one chunk and
+    past it, a ragged last chunk, ragged channel tiles (the scalar path at
+    D 1 and 31, the 16-byte path at 300 and 2560)."""
+    gen = torch.Generator(device=dev).manual_seed(S * 7 + D)
+    a = torch.rand((2, S, D), device=dev, generator=gen) * 0.98 + 0.01
+    b = torch.randn((2, S, D), device=dev, generator=gen)
+    got = linear_scan(a, b)
+    assert torch.equal(_scan_bits(got), _scan_bits(linear_scan(a, b)))
+    want = kernel_order_scan(a.cpu(), b.cpu(), SCAN_RUN)
+    assert torch.equal(_scan_bits(got), _scan_bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_cuda_linear_scan_runs_give_the_order_models_bits(dev, chunk):
+    gen = torch.Generator(device=dev).manual_seed(chunk)
+    a = torch.rand((2, 1000, 130), device=dev, generator=gen) * 0.98 + 0.01
+    b = torch.randn((2, 1000, 130), device=dev, generator=gen)
+    got = scan_launch(a, b, chunk=chunk)
+    want = kernel_order_scan(a.cpu(), b.cpu(), chunk)
+    assert torch.equal(_scan_bits(got), _scan_bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [257, 4096])
+def test_cuda_linear_scan_holds_near_one_decays(dev, S):
+    """The RG-LRU's regime: a in [0.999, 0.99999], b scaled by
+    sqrt(1 - a^2) as the RG-LRU scales it, where a run's product of a
+    weighs most; within 1e-5 of the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(S)
+    a = torch.rand((2, S, 2560), device=dev, generator=gen) * 0.00099 + 0.999
+    b = torch.randn((2, S, 2560), device=dev, generator=gen)
+    b = b * torch.sqrt(1 - a.double() ** 2).float()
+    got = linear_scan(a, b)
+    want = linear_scan_sequential(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
+    assert torch.equal(_scan_bits(got),
+                       _scan_bits(kernel_order_scan(a.cpu(), b.cpu(),
+                                                    SCAN_RUN)))
 
 
 # WKV6 against its plain version: the kernel takes the plain version's
