@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-main paths give it, and drives four paths through the port's entry
+main paths give it, and drives these paths through the port's entry
 points:
 
   * the single-device path: all seven TPC-H queries at SF1 through
@@ -22,6 +22,18 @@ points:
     call of one shard timed, then W1/W2/W3 (``engine.dist_median`` /
     ``dist_count`` / ``dist_hash_join``) at the paper's sizes under each
     policy;
+  * telemetry and tracing on those paths: the 7 queries at SF1 under the
+    cost and kernel contexts on one device and the composed context on 8
+    shards, recorded (``telemetry.recording()``) against unrecorded, the
+    same bits, one registry execution per plan; ``explain_analyze`` of q3
+    on 8 shards; the recording's cost per call; one traced compile and
+    execute;
+  * W1-W4 on one device at the same sizes, through the entry points of
+    ``analytics/aggregate.py`` and ``analytics/join.py``
+    (``count_direct``, ``count_partitioned``, ``median_jit``,
+    ``hash_join``, ``index_join`` radix/sorted/hash), each against its
+    oracle, with ``hash_aggregate_multi`` and ``join_probe`` timed at
+    W2's and W3's shapes;
   * the LM serving path: recurrentgemma-2b at full width (26 layers,
     d_model 2560, 2.66B fp32 parameters drawn from a seeded generator on
     the card): one prefill of 2 x 4096 tokens through
@@ -94,28 +106,64 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of one call of ``fn``: the self time of
-    every kernel, copy and memset it ran under torch.profiler, over
-    ``reps`` calls after one warm-up. For a call that waits on the host
-    (a flag read back), or that takes less device time than the host
-    needs to issue it, where CUDA events around back-to-back calls would
-    also count the host's gaps."""
+PROFILER_SESSIONS = 3
+
+
+def device_sessions(fn, reps: int):
+    """(device records, device microseconds, {CUDA kernel name:
+    launches}) of one call of ``fn`` under torch.profiler, from
+    ``PROFILER_SESSIONS`` sessions of ``reps`` calls each after one
+    warm-up.
+
+    On the card this runs on, a session now and then loses CUDA records
+    of work that ran (all of them, or some of a kernel's) and now and
+    then holds records of work that ran before it. ``fn`` runs the same
+    work each call, so per record name the calls' launches are the median
+    of the sessions' counts over ``reps``, rounded, and each launch takes
+    the mean time of that name's records over all sessions. Sessions
+    that disagree on their record counts are printed."""
+    import statistics
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(getattr(e, "self_device_time_total", 0)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not busy:
-        raise RuntimeError("torch.profiler saw no device time")
-    return busy / 1e3 / reps
+    counts, times, totals = {}, {}, []
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen[e.key] = e.count
+                times[e.key] = times.get(e.key, 0.0) + getattr(
+                    e, "self_device_time_total", 0)
+        for key in set(counts) | set(seen):
+            counts.setdefault(key, []).append(seen.get(key, 0))
+        totals.append(sum(seen.values()))
+    if len(set(totals)) > 1:
+        log(f"torch.profiler: {PROFILER_SESSIONS} sessions of {reps} "
+            f"calls saw "
+            f"{totals} device records")
+    per_call = {k: round(statistics.median(
+        c + [0] * (PROFILER_SESSIONS - len(c))) / reps) for k, c in counts.items()}
+    per_call = {k: n for k, n in per_call.items() if n}
+    if not per_call:
+        raise RuntimeError("torch.profiler saw no device work")
+    busy = sum(n * times[k] / sum(counts[k]) for k, n in per_call.items())
+    return sum(per_call.values()), busy, per_call
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one call of ``fn``: the self time of
+    every kernel, copy and memset it ran under torch.profiler, over
+    ``reps`` calls after one warm-up (``device_sessions``). For a call
+    that waits on the host (a flag read back), or that takes less device
+    time than the host needs to issue it, where CUDA events around
+    back-to-back calls would also count the host's gaps."""
+    return device_sessions(fn, reps)[1] / 1e3
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -339,7 +387,14 @@ def time_hash_aggregate(args, kw, label):
                 ms_with_host=with_host, host_us_per_call=us)
 
 
-def time_join_probe(args, label):
+def time_join_probe(args, label, cut=None):
+    """Kernel, plain and bound times at one probe's arguments. With
+    ``cut`` = (partitions, probes a partition) the plain version, which
+    compares every probe with every build key, runs on that cut only (the
+    whole shape's cube is out of reach): the kernel's output at the whole
+    shape must equal it there bit for bit, its time is reported as
+    ``plain_ms_cut``, and ``plain_ms`` is "not measured"."""
+    import torch
     from repro_torch.kernels.join_probe import join_probe
     from repro_torch.kernels.join_probe.ops import table_log2
     from repro_torch.kernels.join_probe.ref import join_probe_ref
@@ -351,7 +406,31 @@ def time_join_probe(args, label):
     ms = device_ms(lambda: join_probe(bk, bv, pk, mode="cuda"), reps=20)
     with_sync = cuda_ms(lambda: join_probe(bk, bv, pk, mode="cuda"),
                         reps=20)
-    plain = cuda_ms(lambda: join_probe_ref(bk, bv, pk), reps=1)
+    extra = {}
+    if cut is None:
+        plain = cuda_ms(lambda: join_probe_ref(bk, bv, pk), reps=1)
+    else:
+        cp, cq = cut
+        plain = "not measured"
+        v, f = join_probe(bk, bv, pk, mode="cuda")
+        v, f = v[:cp, :cq], f[:cp, :cq]
+        ref = []
+        cut_ms = cuda_ms(lambda: ref.append(join_probe_ref(
+            bk[:cp], bv[:cp], pk[:cp, :cq])), reps=1, warmup=0)
+        rv, rf = ref[0]
+        if not (torch.equal(v.view(torch.int32), rv.view(torch.int32))
+                and torch.equal(f, rf)):
+            raise AssertionError(
+                f"join_probe {label}: differs from the plain version on "
+                f"its first {cp} partition(s) x {cq} probes "
+                f"({int((v != rv).sum())} vals, {int((f != rf).sum())} "
+                "found)")
+        log(f"join_probe {label}: the whole shape's output bit-equal to "
+            f"the plain version on {cp} partition(s) x {cq} probes "
+            f"({int(f.sum())} found)")
+        extra = dict(plain_ms_cut=cut_ms,
+                     plain_cut=f"build ({cp}, {Bk}), probe ({cp}, {cq})",
+                     max_abs_err=float((v - rv).abs().max()))
     n_bytes = 8 * P * Bk + 4 * P * Pk + 5 * P * Pk
     # The function's own work: build keys are unique apart from the -1
     # padding, so one insert per build slot and one lookup per probe slot.
@@ -364,7 +443,7 @@ def time_join_probe(args, label):
     return dict(shape=f"{label}: build ({P}, {Bk}), probe ({P}, {Pk})",
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, design_floor_ms=design_ms,
-                ms_with_host_sync=with_sync)
+                ms_with_host_sync=with_sync, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -907,13 +986,13 @@ def dist_aggregate_call(data):
 
 
 def device_share(fn):
-    """Wall ms of one warm call beside the device's busy ms (the CUDA
-    kernels' and copies' self time under torch.profiler; one stream, so
-    they do not overlap), the count of device operations, and the count
-    of calls that waited for the device (torch's sync debug mode)."""
+    """Wall ms of one warm call (host clock, synchronized, no profiler)
+    beside the device's busy ms (the CUDA kernels' and copies' self time
+    under torch.profiler, ``device_sessions``; one stream, so they do not
+    overlap), the count of device operations, and the count of calls
+    that waited for the device (torch's sync debug mode)."""
     import warnings
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -924,20 +1003,120 @@ def device_share(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(getattr(e, "self_device_time_total", 0) for e in dev) / 1e3
-    return dict(wall_ms=wall, device_busy_ms=busy if busy else
-                "not measured", device_ops=sum(e.count for e in dev),
-                idle_share=(1 - busy / wall) if busy else "not measured",
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ops, busy_us, _ = device_sessions(fn, 1)
+    busy = busy_us / 1e3
+    return dict(wall_ms=wall, device_busy_ms=busy, device_ops=ops,
+                idle_share=1 - busy / wall,
                 host_syncs=sum("synchroniz" in str(w.message)
                                for w in caught))
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: telemetry and tracing on the card (SF1)
+# ---------------------------------------------------------------------------
+def telemetry_phase(data):
+    """The 7 queries under ``cost`` and ``kernel`` on one device and
+    ``composed`` on 8 virtual shards, tracked (telemetry recording) against
+    untracked: the same bits, one registry execution per plan, every
+    counter >= 0. The launch counts are zeroed just before the tracked
+    runs and read just after. Prints explain_analyze of q3 on 8 shards,
+    warm ms, device operations and host syncs per call tracked against
+    untracked, and checks that a traced compile and execute leaves no
+    open span. Returns the tracked runs' launches."""
+    import dataclasses
+    import torch
+    from repro_torch.analytics import planner, telemetry, tracing
+    from repro_torch.analytics.tpch import LOGICAL_QUERIES, run_query
+    from repro_torch.kernels import common
+
+    ctxs = {"cost": planner.ExecutionContext(executor="cost"),
+            "kernel": planner.ExecutionContext(**CONTEXTS["kernel"]),
+            "composed": dist_contexts()["composed/INTERLEAVE"]}
+    tables = data.tables
+    plain = {c: {q: planner.compile_plan(p, tables, ctx)
+                 for q, p in LOGICAL_QUERIES.items()}
+             for c, ctx in ctxs.items()}
+    reg = telemetry.registry()
+    reg.clear()
+    with telemetry.recording():
+        tracked = {c: {q: planner.compile_plan(p, tables, ctx)
+                       for q, p in LOGICAL_QUERIES.items()}
+                   for c, ctx in ctxs.items()}
+    want = {c: {q: cp(tables) for q, cp in per.items()}
+            for c, per in plain.items()}
+    torch.cuda.synchronize()
+    common.reset_launches()                 # just before the tracked runs
+    got = {c: {q: cp(tables) for q, cp in per.items()}
+           for c, per in tracked.items()}
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)        # just after them
+    for name in ("hash_aggregate_multi", "join_probe", "block_histograms"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the tracked runs never launched {name}")
+    for c in ctxs:
+        for q in LOGICAL_QUERIES:
+            cp = tracked[c][q]
+            if "_stats" in got[c][q] or not same_bits(got[c][q], want[c][q]):
+                raise AssertionError(f"{q} under {c}: the tracked run "
+                                     "differs from the untracked one")
+            ps = reg.get(cp.cache_key)
+            if ps is None or ps.executions != 1 or not ps.nodes:
+                raise AssertionError(f"{q} under {c}: registry holds "
+                                     f"{ps and ps.executions} executions")
+            bad = [(i, ns.last) for i, ns in ps.nodes.items()
+                   if any(v < 0 for v in ns.last.values())]
+            if bad:
+                raise AssertionError(f"{q} under {c}: negative counters "
+                                     f"{bad}")
+    log(f"telemetry: 7 queries x {sorted(ctxs)} tracked give the untracked "
+        f"bits; registry {json.dumps(reg.summary())}; launches {launches}")
+    text = telemetry.explain_analyze(LOGICAL_QUERIES["q3"], tables,
+                                     ctxs["composed"])
+    log(f"explain_analyze q3, composed/INTERLEAVE, {N_SHARDS} shards:\n"
+        f"{text}")
+
+    costs = {}
+    for c in ctxs:
+        for q in LOGICAL_QUERIES:
+            row = {}
+            for kind, cp in (("untracked", plain[c][q]),
+                             ("tracked", tracked[c][q])):
+                share = device_share(lambda cp=cp: cp(tables))
+                row[kind] = dict(warm_ms=cuda_ms(lambda cp=cp: cp(tables),
+                                                 reps=WARM_REPS, warmup=0),
+                                 device_ops=share["device_ops"],
+                                 device_busy_ms=share["device_busy_ms"],
+                                 idle_share=share["idle_share"],
+                                 host_syncs=share["host_syncs"])
+            extra = row["tracked"]["host_syncs"] - row["untracked"][
+                "host_syncs"]
+            if extra > 1:
+                raise AssertionError(f"{q} under {c}: recording added "
+                                     f"{extra} host syncs a call, not 1")
+            costs[f"{c}/{q}"] = row
+    log(f"telemetry cost per call (warm ms, device ops, busy ms, idle "
+        f"share, host syncs): "
+        f"{json.dumps(costs)}")
+    reg.clear()
+
+    fresh = dataclasses.replace(ctxs["cost"], capacity_factor=2.5)
+    with tracing.tracing() as tr:
+        tr.clear()
+        run_query("q5", data, context=fresh)          # a cache miss
+        spans, open_left = tr.spans(), tr.open_spans()
+        tr.clear()
+    names = [sp.name for sp in spans]
+    if open_left or names != ["plan.compile", "plan.execute"]:
+        raise AssertionError(f"tracing: spans {names}, open {open_left}")
+    log("tracing: a traced compile and execute gave "
+        + ", ".join(f"{sp.name} {sp.dur * 1e3:.3f} ms" for sp in spans)
+        + " (host clock: the execute span covers the host's issue), no "
+        "open span")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -953,45 +1132,43 @@ W_BUILD, W_PROBE = 16_000_000, 256_000_000      # W3 (blanas_join)
 W_SUM_RTOL = 1e-6
 
 
-def w_phase(dev):
-    """dist_median / dist_count / dist_hash_join on 8 virtual shards under
-    each policy, against single-device evaluations of the same data. A
-    run that exhausts device memory is cut to the first half of its
-    records (at most twice) and the cut is printed."""
-    import gc
-    import torch
-    from repro_torch.analytics import datasets as D
-    from repro_torch.analytics.engine import (dist_count, dist_hash_join,
-                                              dist_median)
-    from repro_torch.core.config import PlacementPolicy
+class WData:
+    """W1-W4's tensors at the paper's sizes, made once on the card and
+    shared by phases 7 and 7b, with their oracles (each computed once):
+    float64 checksums of the probe prefixes a cut may take, bincount, and
+    a sort oracle for the medians."""
 
-    t0 = time.perf_counter()
-    agg = D.to_tensors(D.zipf(W_RECORDS, W_CARD, exponent=0.5, seed=SEED),
-                       dev)
-    join = D.to_tensors(D.blanas_join(W_BUILD, W_PROBE, seed=SEED), dev)
-    torch.cuda.synchronize()
-    log(f"W data: zipf({W_RECORDS}, {W_CARD}, e=0.5), blanas_join("
-        f"{W_BUILD}, {W_PROBE}), seed {SEED}, in "
-        f"{time.perf_counter() - t0:.3f} s")
-    keys, vals = agg["keys"], agg["vals"]
-    bk, bv, pk = join["build_keys"], join["build_vals"], join["probe_keys"]
-    # float64 checksums of the probe prefixes a cut may take
-    order = torch.argsort(bk)
-    pos = torch.clamp(torch.searchsorted(bk[order], pk), max=W_BUILD - 1)
-    if not torch.equal(bk[order][pos], pk):
-        raise AssertionError("W3 data: a probe key has no build key")
-    matched = bv.to(torch.float64)[order[pos]]
-    sum_ref = {W_PROBE >> c: float(matched[:W_PROBE >> c].sum())
-               for c in range(3)}
-    del order, pos, matched
-    refs = {}
+    def __init__(self, dev):
+        import torch
+        from repro_torch.analytics import datasets as D
+        t0 = time.perf_counter()
+        agg = D.to_tensors(D.zipf(W_RECORDS, W_CARD, exponent=0.5,
+                                  seed=SEED), dev)
+        join = D.to_tensors(D.blanas_join(W_BUILD, W_PROBE, seed=SEED), dev)
+        torch.cuda.synchronize()
+        log(f"W data: zipf({W_RECORDS}, {W_CARD}, e=0.5), blanas_join("
+            f"{W_BUILD}, {W_PROBE}), seed {SEED}, in "
+            f"{time.perf_counter() - t0:.3f} s")
+        self.keys, self.vals = agg["keys"], agg["vals"]
+        self.bk, self.bv = join["build_keys"], join["build_vals"]
+        self.pk = join["probe_keys"]
+        order = torch.argsort(self.bk)
+        pos = torch.clamp(torch.searchsorted(self.bk[order], self.pk),
+                          max=W_BUILD - 1)
+        if not torch.equal(self.bk[order][pos], self.pk):
+            raise AssertionError("W3 data: a probe key has no build key")
+        matched = self.bv.to(torch.float64)[order[pos]]
+        self.sum_ref = {W_PROBE >> c: float(matched[:W_PROBE >> c].sum())
+                        for c in range(3)}
+        self._refs = {}
 
-    def ref(kind, n):
-        if (kind, n) not in refs:
-            k, v = keys[:n], vals[:n]
+    def ref(self, kind, n):
+        import torch
+        if (kind, n) not in self._refs:
+            k, v = self.keys[:n], self.vals[:n]
             counts = torch.bincount(k, minlength=W_CARD)
             if kind == "count":
-                refs[kind, n] = counts.to(torch.float32)
+                self._refs[kind, n] = counts.to(torch.float32)
             else:
                 # an oracle apart from segment_median: one sort on (key,
                 # value) packed in int64 (values in [0, 1) order as their
@@ -1001,14 +1178,28 @@ def w_phase(dev):
                 starts = torch.cumsum(counts, 0) - counts
                 lo = torch.clamp(starts + (counts - 1) // 2, 0, n - 1)
                 hi = torch.clamp(starts + counts // 2, 0, n - 1)
-                refs[kind, n] = torch.where(counts > 0,
-                                            (sv[lo] + sv[hi]) * 0.5,
-                                            torch.nan)
-        return refs[kind, n]
+                self._refs[kind, n] = torch.where(counts > 0,
+                                                  (sv[lo] + sv[hi]) * 0.5,
+                                                  torch.nan)
+        return self._refs[kind, n]
+
+
+def w_phase(wd, dev):
+    """dist_median / dist_count / dist_hash_join on 8 virtual shards under
+    each policy, against single-device evaluations of the same data. A
+    run that exhausts device memory is cut to the first half of its
+    records (at most twice) and the cut is printed."""
+    import gc
+    import torch
+    from repro_torch.analytics.engine import (dist_count, dist_hash_join,
+                                              dist_median)
+    from repro_torch.core.config import PlacementPolicy
+
+    keys, vals, bk, bv, pk = wd.keys, wd.vals, wd.bk, wd.bv, wd.pk
 
     def w2(p, n):
         got = dist_count(N_SHARDS, p, W_CARD, device=dev)(keys[:n])
-        if not torch.equal(got, ref("count", n)):
+        if not torch.equal(got, wd.ref("count", n)):
             raise AssertionError(f"W2 {p.name}: counts differ")
         return {}
 
@@ -1016,7 +1207,7 @@ def w_phase(dev):
         got = dist_median(N_SHARDS, p, W_CARD, device=dev)(keys[:n],
                                                            vals[:n])
         if not torch.equal(torch.nan_to_num(got, -7.0),
-                           torch.nan_to_num(ref("median", n), -7.0)):
+                           torch.nan_to_num(wd.ref("median", n), -7.0)):
             raise AssertionError(f"W1 {p.name}: medians differ from the "
                                  "sort oracle")
         return {}
@@ -1024,7 +1215,7 @@ def w_phase(dev):
     def w3(p, n):
         c, s = dist_hash_join(N_SHARDS, p, device=dev)(bk, bv, pk[:n])
         rc = abs(float(c) - n) / n
-        rs = abs(float(s) - sum_ref[n]) / abs(sum_ref[n])
+        rs = abs(float(s) - wd.sum_ref[n]) / abs(wd.sum_ref[n])
         if max(rc, rs) > W_SUM_RTOL:
             raise AssertionError(f"W3 {p.name}: count {float(c)} of {n}, "
                                  f"checksum off float64 by {rs!r}")
@@ -1061,13 +1252,158 @@ def w_phase(dev):
         log(f"W1-W3 {pol}: {json.dumps(row)}")
     counts = dist_count(N_SHARDS, PlacementPolicy.FIRST_TOUCH, W_CARD,
                         auto_rebalance=True, device=dev)(keys)
-    if not torch.equal(counts, ref("count", W_RECORDS)):
+    if not torch.equal(counts, wd.ref("count", W_RECORDS)):
         raise AssertionError("W2 FIRST_TOUCH auto_rebalance: counts differ")
     log("W1-W3: medians equal a single-device sort oracle, counts "
         "equal bincount (also after auto_rebalance under FIRST_TOUCH), W3 "
         f"counts and checksums within {W_SUM_RTOL} of float64; cuts: "
         f"{cuts or 'none'}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: W1-W4 on one device at the paper's sizes
+# ---------------------------------------------------------------------------
+W_KERNELS = {"count_partitioned": ("hash_aggregate_multi",
+                                   "agg_partial_kernel"),
+             "hash_join": ("join_probe", "join_probe_kernel")}
+
+
+def w_local_phase(wd):
+    """W1-W4 through ``analytics.aggregate`` and ``analytics.join`` on one
+    device at the paper's sizes (phase 7's tensors): counts against
+    bincount, medians against the sort oracle, W3 and W4 counts and
+    checksums against float64. The launch counts are zeroed just before
+    the operators run and read just after; torch.profiler must also see
+    each kernel launched inside its operator. Returns (launches, the two
+    kernels' timings at these shapes)."""
+    import torch
+    from repro_torch.analytics import aggregate, columnar, join
+    from repro_torch.kernels import common
+
+    keys, vals, bk, bv, pk = wd.keys, wd.vals, wd.bk, wd.bv, wd.pk
+    n, sum_ref = W_PROBE, wd.sum_ref[W_PROBE]
+
+    def join_check(label, c, s, want_n, want_sum):
+        # the count is an exact integer; only the f32 checksum has a limit
+        rs = abs(float(s) - want_sum) / abs(want_sum)
+        if int(c) != want_n or rs > W_SUM_RTOL:
+            raise AssertionError(f"{label}: count {int(c)} of {want_n}, "
+                                 f"checksum off float64 by {rs!r}")
+        return dict(count=int(c), checksum_rel_dev=rs)
+
+    def hash_index_oracle():
+        """W4's hash index leaves out the keys its 16 rounds of linear
+        probing did not place (the reference's own bound): the count and
+        checksum it must give are those of the probes whose key the table
+        holds, with each key's value taken from the build input. The held
+        keys come from the port's own build, so at this size the check is
+        of the probe against that build (the tests hold the build to the
+        reference's bits at small sizes); it also requires every held key
+        to be a build key, held once."""
+        idx = join.build_hash_index(bk, bv)
+        sk = torch.sort(idx.table_keys[idx.table_keys >= 0]).values
+        border = torch.argsort(bk)
+        sbk = bk[border]
+        at = torch.clamp(torch.searchsorted(sbk, sk), max=W_BUILD - 1)
+        if bool((sk[1:] == sk[:-1]).any()) or not torch.equal(sbk[at], sk):
+            raise AssertionError("W4 hash index: a table key is held twice "
+                                 "or is not a build key")
+        pos = torch.clamp(torch.searchsorted(sk, pk), max=sk.numel() - 1)
+        hit = sk[pos] == pk
+        del pos
+        bpos = torch.clamp(torch.searchsorted(sbk, pk), max=W_BUILD - 1)
+        want = float((bv.to(torch.float64)[border[bpos]] * hit).sum())
+        return int(hit.sum()), want, W_BUILD - int(sk.numel()), idx.capacity
+
+    ops = {
+        "count_direct": lambda: aggregate.count_direct(keys, W_CARD),
+        "count_partitioned": lambda: aggregate.count_partitioned(keys,
+                                                                 W_CARD),
+        "median_jit": lambda: aggregate.median_jit(keys, vals, W_CARD),
+        "hash_join": lambda: join.hash_join(bk, bv, pk),
+    }
+    for kind in ("radix", "sorted", "hash"):
+        ops[f"index_join/{kind}"] = (
+            lambda kind=kind: join.index_join(bk, bv, pk, kind))
+
+    torch.cuda.synchronize()
+    common.reset_launches()                 # just before the operators
+    rows, results = {}, {}
+    for name, fn in ops.items():
+        before = dict(common.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        rows[name] = dict(first_s=time.perf_counter() - t,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          launches={k: v - before[k] for k, v
+                                    in common.LAUNCHES.items()
+                                    if v - before[k]})
+    launches = dict(common.LAUNCHES)        # just after them
+    for name, (counter, _kernel) in W_KERNELS.items():
+        if not rows[name]["launches"].get(counter):
+            raise AssertionError(f"{name} never launched {counter}")
+
+    # checks
+    if not torch.equal(results["count_direct"], wd.ref("count", W_RECORDS)):
+        raise AssertionError("W2 count_direct differs from bincount")
+    counts, ovf = results["count_partitioned"]
+    if int(ovf) != 0 or not torch.equal(counts, wd.ref("count", W_RECORDS)):
+        raise AssertionError(f"W2 count_partitioned: overflow {int(ovf)}, "
+                             "or counts differ from bincount")
+    if not torch.equal(torch.nan_to_num(results["median_jit"], -7.0),
+                       torch.nan_to_num(wd.ref("median", W_RECORDS), -7.0)):
+        raise AssertionError("W1 median_jit differs from the sort oracle")
+    c, s, ovf = results["hash_join"]
+    if int(ovf) != 0:
+        raise AssertionError(f"W3 hash_join: overflow {int(ovf)}")
+    rows["hash_join"].update(join_check("W3 hash_join", c, s, n, sum_ref))
+    for kind in ("radix", "sorted"):
+        rows[f"index_join/{kind}"].update(join_check(
+            f"W4 {kind}", *results[f"index_join/{kind}"], n, sum_ref))
+    held_n, held_sum, unplaced, cap = hash_index_oracle()
+    rows["index_join/hash"].update(join_check(
+        "W4 hash", *results["index_join/hash"], held_n, held_sum),
+        build_keys_unplaced=unplaced, probes_unmatched=n - held_n)
+    log(f"W4 hash index: {unplaced} of {W_BUILD} build keys unplaced after "
+        f"16 probes at load {W_BUILD / cap:.3f}, so {n - held_n} of "
+        f"{n} probes unmatched (the reference's bound); the rest match")
+
+    # warm seconds (CUDA events, after the first run above)
+    for name, fn in ops.items():
+        rows[name]["warm_s"] = cuda_ms(fn, reps=2, warmup=0) / 1e3
+    for name, row in rows.items():
+        log(f"W1-W4 one device [{name}]: {json.dumps(row)}")
+
+    # torch.profiler sees each kernel inside its operator
+    for name, (_counter, kernel) in W_KERNELS.items():
+        seen = device_sessions(ops[name], 1)[2]
+        hits = sum(v for k, v in seen.items() if kernel in k)
+        if hits < 1:
+            raise AssertionError(f"torch.profiler saw no {kernel} in {name}"
+                                 f": {sorted(k[:60] for k in seen)}")
+        log(f"torch.profiler: {hits} {kernel} launch(es) in {name}")
+    log("W1-W4 one device: counts equal bincount (overflow 0), medians "
+        "equal the sort oracle, W3 and W4 counts and checksums within "
+        f"{W_SUM_RTOL} of float64; launches {launches}; cuts: none")
+
+    # the two kernels at these shapes, as the main path's rows are timed
+    agg_calls, probe_calls = [], []
+    with capture(columnar, "hash_aggregate_multi", agg_calls), \
+            capture(join, "join_probe", probe_calls):
+        ops["count_partitioned"]()
+        ops["hash_join"]()
+    agg_t = time_hash_aggregate(*agg_calls[0], "W2 count_partitioned, "
+                                f"zipf({W_RECORDS}, {W_CARD})")
+    P, Pk = probe_calls[0][0][2].shape
+    probe_t = time_join_probe(probe_calls[0][0], "W3 hash_join, blanas_join("
+                              f"{W_BUILD}, {W_PROBE})",
+                              cut=(1, Pk // P))
+    for kind, t in (("hash_aggregate", agg_t), ("join_probe", probe_t)):
+        log(f"{kind} timing (W1-W4 one device) {json.dumps(t)}")
+    return launches, agg_t, probe_t
 
 
 # ---------------------------------------------------------------------------
@@ -1704,9 +2040,15 @@ def main() -> int:
         f"{N_SHARDS} shards, SF1")
     log(f"hash_aggregate distributed timing {json.dumps(dist_agg_time)}")
     peak_line(f"distributed path, {N_SHARDS} shards")
+    tele_launches = telemetry_phase(data)
+    peak_line("telemetry and tracing")
     del data, results
-    w_phase(dev)
+    wd = WData(dev)
+    w_phase(wd, dev)
     peak_line("W1-W3")
+    w_launches, w_agg_time, w_probe_time = w_local_phase(wd)
+    del wd
+    peak_line("W1-W4 one device")
     lm_kernels = lm_phase(dev)
     torch.cuda.reset_peak_memory_stats()
     wkv_kernel = rwkv_phase(dev)
@@ -1718,16 +2060,21 @@ def main() -> int:
              replaces="src/repro/kernels/hash_aggregate/kernel.py:54",
              launches=launches["hash_aggregate_multi"], **head,
              launches_distributed=dist_launches["hash_aggregate_multi"],
-             other_shapes=[agg_times["q1"], dist_agg_time]),
+             launches_telemetry=tele_launches["hash_aggregate_multi"],
+             launches_w_one_device=w_launches["hash_aggregate_multi"],
+             other_shapes=[agg_times["q1"], dist_agg_time, w_agg_time]),
         dict(name="join_probe", route="cuda",
              source="src/repro_torch/kernels/csrc/join_probe.cu",
              replaces="src/repro/kernels/join_probe/kernel.py:40",
              launches=launches["join_probe"], max_abs_err=probe_err,
-             **probe_time),
+             launches_telemetry=tele_launches["join_probe"],
+             launches_w_one_device=w_launches["join_probe"],
+             **probe_time, other_shapes=[w_probe_time]),
         dict(name="block_histograms", route="cuda",
              source="src/repro_torch/kernels/csrc/radix_partition.cu",
              replaces="src/repro/kernels/radix_partition/kernel.py:35",
              launches=dist_launches["block_histograms"], max_abs_err=0.0,
+             launches_telemetry=tele_launches["block_histograms"],
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")

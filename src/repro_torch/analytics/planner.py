@@ -21,6 +21,12 @@ shard and calls the engine's collectives (engine.py). Without shards,
 becomes an eager callable, held with its physical plan in the bounded LRU
 plan cache.
 
+Under ``telemetry.recording()`` the walkers also note observed rows per
+node, ``CompiledPlan`` folds them into the StatsRegistry, and a cache hit
+on a drifting plan re-lowers with the observed join inputs
+(``_maybe_replan``); ``explain_analyze`` renders them. Under
+``tracing.tracing()`` compiles and dispatches leave host-side spans.
+
 The cost model, in equivalent passes over the input rows:
 
   cost(xla)         = C
@@ -34,6 +40,7 @@ import functools
 import json
 import math
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -43,6 +50,7 @@ import torch
 
 from repro_torch.analytics import physical as PH
 from repro_torch.analytics import plan as L
+from repro_torch.analytics import telemetry, tracing
 from repro_torch.analytics.columnar import (DENSE_GROUP_LIMIT, Table,
                                             finalize_stacked,
                                             group_aggregate, pkfk_join,
@@ -896,10 +904,16 @@ class _LocalExecutor:
     """Single-device walker over a physical plan.
 
     Memoization is by NODE STRUCTURE (physical nodes are frozen
-    dataclasses), so structurally identical subtrees execute once."""
+    dataclasses), so structurally identical subtrees execute once.
+
+    With ``record`` the walk notes per-node counters (telemetry.py) as
+    device tensors, keyed by walk_unique id, and returns them under
+    ``"_stats"``. Without it, no recording site runs: each sits behind
+    ``if self.record``, so the walk makes no extra launch and no sync."""
 
     def __init__(self, tables, ctx: ExecutionContext, indexes,
-                 profile: Optional[CostProfile] = None):
+                 profile: Optional[CostProfile] = None,
+                 record: bool = False):
         self.tables = tables
         self.ctx = ctx
         self.indexes = indexes           # {"table.column": (order, sk)}
@@ -910,6 +924,9 @@ class _LocalExecutor:
         self.device = _device_of(tables)
         self.overflow = torch.zeros((), dtype=torch.int32, device=self.device)
         self._memo: Dict[PH.PNode, object] = {}
+        self.record = record
+        self.stats: Dict[int, Dict[str, Union[int, torch.Tensor]]] = {}
+        self._ids: Dict[PH.PNode, int] = {}
 
     def run(self, node: PH.PNode):
         hit = self._memo.get(node)
@@ -917,6 +934,14 @@ class _LocalExecutor:
             hit = self._eval(node)
             self._memo[node] = hit
         return hit
+
+    def _note(self, node: PH.PNode, **vals) -> None:
+        """Stash one node's observed counters (device scalars or Python
+        ints; ``CompiledPlan`` reads them back in one transfer). Memoized
+        subtrees note once, as they execute once."""
+        i = self._ids.get(node)
+        if i is not None:
+            self.stats.setdefault(i, {}).update(vals)
 
     def _eval(self, node: PH.PNode):
         method = getattr(self, "_" + type(node).__name__.lower())
@@ -934,7 +959,17 @@ class _LocalExecutor:
 
     def _pfilter(self, node: PH.PFilter) -> Table:
         t = self.run(node.child)
-        return t.filter(eval_expr(node.pred, t))
+        out = t.filter(eval_expr(node.pred, t))
+        self._record_filter(node, t, out)
+        return out
+
+    def _record_filter(self, node: PH.PFilter, t: Table,
+                       out: Table) -> None:
+        if self.record:
+            # observed selectivity (alive_out / alive_in) is what
+            # telemetry.refresh_profile fits filter_selectivity from
+            self._note(node, alive_in=(t.weights() > 0).sum(),
+                       alive_out=(out.weights() > 0).sum())
 
     def _pproject(self, node: PH.PProject) -> Table:
         t = self.run(node.child)
@@ -950,9 +985,16 @@ class _LocalExecutor:
                 n_partitions=self.ctx.n_partitions,
                 capacity_factor=self.ctx.capacity_factor)
             self.overflow = self.overflow + ovf
-            return joined
-        return pkfk_join(probe, build, node.probe_key, node.build_key,
-                         dict(node.take))
+        else:
+            joined = pkfk_join(probe, build, node.probe_key, node.build_key,
+                               dict(node.take))
+        self._record_join(node, probe, build, joined)
+        return joined
+
+    def _record_join(self, node: PH.PJoin, probe: Table, build: Table,
+                     joined: Table) -> None:
+        if self.record:
+            self._note(node, out_alive=(joined.weights() > 0).sum())
 
     def _pattach(self, node: PH.PAttach) -> Table:
         t = self.run(node.child)
@@ -990,6 +1032,8 @@ class _LocalExecutor:
                                   n_partitions=self.ctx.n_partitions,
                                   capacity_factor=self.agg_cf)
         self.overflow = self.overflow + out["_overflow"]
+        if self.record:
+            self._note(node, groups_occupied=(out["_count"] > 0).sum())
         return out
 
     def _scalar_aggregate(self, node: PH.PAggregate,
@@ -1028,6 +1072,11 @@ class _LocalExecutor:
 
     # -- plan root ----------------------------------------------------------
     def execute(self, phys: PH.PhysicalPlan) -> Dict[str, torch.Tensor]:
+        if self.record:
+            # node id = walk_unique enumerate order: deterministic for a
+            # fixed tree, shared with the StatsRegistry's accounting
+            self._ids = {n: i
+                         for i, n in enumerate(PH.walk_unique(phys.root))}
         res = self.run(phys.root)
         if isinstance(res, Table):
             raise TypeError("plan root must be an Aggregate or TopK node")
@@ -1035,6 +1084,12 @@ class _LocalExecutor:
         out["_overflow"] = self.overflow
         if phys.outputs is not None:
             out = {k: out[k] for k in phys.outputs}
+        if self.record:
+            # reserved key, attached after output filtering; every
+            # distributed counter is psum'd or computed from replicated
+            # tables, so shard 0's are the global ones. CompiledPlan strips
+            # it.
+            out["_stats"] = self.stats
         return out
 
 
@@ -1054,10 +1109,37 @@ class _DistributedExecutor(_LocalExecutor):
     (pushdown_group_sums routes and merges in one primitive)."""
 
     def __init__(self, tables, ctx: ExecutionContext, comm: Communicator,
-                 profile: Optional[CostProfile] = None):
-        super().__init__(tables, ctx, {}, profile)
+                 profile: Optional[CostProfile] = None,
+                 record: bool = False):
+        super().__init__(tables, ctx, {}, profile, record)
         self.comm = comm
         self.n = comm.n
+        # this shard's parts of GLOBAL counters, summed over the shards in
+        # one psum when the walk ends (execute)
+        self._parts: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def _note_parts(self, node: PH.PNode, **parts) -> None:
+        """Stash this shard's parts of one node's GLOBAL counters (alive
+        rows of its row-sharded slice, rows it sent away, its overflow).
+        The reference psums each counter where it is noted; here every
+        part of the walk goes into ONE psum at its end, the same
+        collective on every shard whether or not its rows are alive (each
+        psum of the virtual mesh costs every shard n - 1 device adds and a
+        meeting of the shards' threads)."""
+        i = self._ids.get(node)
+        if i is not None:
+            self._parts.setdefault(i, {}).update(parts)
+
+    def execute(self, phys: PH.PhysicalPlan) -> Dict[str, torch.Tensor]:
+        out = super().execute(phys)
+        if self.record and self._parts:
+            names = [(i, k) for i, parts in sorted(self._parts.items())
+                     for k in parts]
+            total = self.comm.psum(torch.stack(
+                [self._parts[i][k].to(torch.int64) for i, k in names]))
+            for (i, k), v in zip(names, total.unbind()):
+                self.stats.setdefault(i, {})[k] = v
+        return out
 
     def _pscan(self, node: PH.PScan) -> Table:
         cols = {c: a for c, a in self.tables[node.table].items()
@@ -1070,6 +1152,12 @@ class _DistributedExecutor(_LocalExecutor):
                             f"PAggregate")
         child = self.run(node.child)
         if node.kind == "broadcast":
+            if self.record:
+                alive = (child.weights() > 0).sum()
+                # every alive row lands on the n-1 shards that did not
+                # already hold it (the all-gather's wire traffic)
+                self._note_parts(node, alive_in=alive,
+                                 moved=alive * (self.n - 1))
             cols = gather_rows(child.columns, self.comm)
             mask = (None if child.mask is None
                     else gather_rows(child.mask, self.comm))
@@ -1088,14 +1176,43 @@ class _DistributedExecutor(_LocalExecutor):
             cols, w, ovf = route_table_rows(child.columns, w0, owner,
                                             self.n, node.capacity, self.comm)
         self.overflow = self.overflow + self.comm.psum(ovf).to(torch.int32)
+        if self.record:
+            # "moved" counts ALIVE rows whose owner is another shard: dead
+            # padding rows also travel, but the estimate prices payload
+            moved = ((w0 > 0) & (owner != self.comm.axis_index())).sum()
+            self._note_parts(node, alive_in=(w0 > 0).sum(), moved=moved,
+                             alive_out=(w > 0).sum(), overflow=ovf)
         return Table(cols, w)
+
+    def _record_filter(self, node: PH.PFilter, t: Table,
+                       out: Table) -> None:
+        if self.record:
+            self._note_parts(node, alive_in=(t.weights() > 0).sum(),
+                             alive_out=(out.weights() > 0).sum())
 
     def _compact(self, node: PH.Compact) -> Table:
         t = self.run(node.child)
         cols, w, ovf = compact_routed_rows(t.columns, t.weights(),
                                            node.capacity)
         self.overflow = self.overflow + self.comm.psum(ovf).to(torch.int32)
+        if self.record:
+            self._note_parts(node, alive_in=(t.weights() > 0).sum(),
+                             alive_out=(w > 0).sum(), overflow=ovf)
         return Table(cols, w)
+
+    def _record_join(self, node: PH.PJoin, probe: Table, build: Table,
+                     joined: Table) -> None:
+        if not self.record:
+            return
+        build_alive = (build.weights() > 0).sum()
+        if node.dist == "broadcast":
+            # broadcast already gathered the build side: the local count
+            # IS the (replicated) global count
+            self._note(node, build_alive=build_alive)
+        else:
+            self._note_parts(node, build_alive=build_alive)
+        self._note_parts(node, probe_alive=(probe.weights() > 0).sum(),
+                         out_alive=(joined.weights() > 0).sum())
 
     def _ptopk(self, node: PH.PTopK) -> Dict[str, torch.Tensor]:
         if node.dist != "candidates":
@@ -1108,7 +1225,8 @@ class _DistributedExecutor(_LocalExecutor):
         # index, the rank-order all_gather keeps ascending global index
         # among equal values across shards, and the final top_k over the
         # k*n candidates breaks ties by candidate position.
-        g = self.run(node.child.child)
+        ex = node.child
+        g = self.run(ex.child)
         vals = g[node.col]
         G = vals.shape[0]
         slots = (G + (-G % self.n)) // self.n
@@ -1118,6 +1236,11 @@ class _DistributedExecutor(_LocalExecutor):
                                       node.k)
         cand_vals = self.comm.all_gather(local_vals)
         cand_idx = self.comm.all_gather(local_idx)
+        if self.record:
+            # the gather's wire volume: k candidate rows per shard, each
+            # landing on the n-1 shards that did not produce it
+            self._note(ex, alive_in=node.k * self.n,
+                       moved=node.k * (self.n - 1) * self.n)
         top_vals, pos = top_k(cand_vals, node.k)
         return {node.col: top_vals, node.index_name: cand_idx[pos.long()]}
 
@@ -1151,6 +1274,8 @@ class _DistributedExecutor(_LocalExecutor):
             out["_count"] = med_counts
             out["_overflow"] = med_ovf
             self.overflow = self.overflow + med_ovf
+            if self.record:
+                self._note(node, groups_occupied=(out["_count"] > 0).sum())
             return out
         sums, overflow = self._merged_sums(node, t, G, dist_aggs)
         out = finalize_stacked(dict(dist_aggs), _stacked_src(dist_aggs),
@@ -1158,6 +1283,8 @@ class _DistributedExecutor(_LocalExecutor):
         out.update(med_out)
         out["_overflow"] = overflow.to(torch.int32) + med_ovf
         self.overflow = self.overflow + out["_overflow"]
+        if self.record:
+            self._note(node, groups_occupied=(out["_count"] > 0).sum())
         return out
 
     def _merged_sums(self, node: PH.PAggregate, t: Table, G: int,
@@ -1320,7 +1447,7 @@ def _true_rows(tables) -> Dict[str, int]:
 
 
 def _run_distributed(phys: PH.PhysicalPlan, ctx: ExecutionContext, profile,
-                     tables):
+                     record, tables):
     """Run ``phys`` on a virtual mesh of ``ctx.n_shards`` shards on the
     tables' device. Each table is zero-padded to a multiple of n rows and
     gets a ``_valid`` weight column; shard i takes the i-th contiguous
@@ -1340,19 +1467,35 @@ def _run_distributed(phys: PH.PhysicalPlan, ctx: ExecutionContext, profile,
         padded[t] = pcols
 
     def local_fn(comm, local_tables):
-        return _DistributedExecutor(local_tables, ctx, comm,
-                                    profile).execute(phys)
+        return _DistributedExecutor(local_tables, ctx, comm, profile,
+                                    record).execute(phys)
 
     mesh = VirtualMesh(n, _device_of(tables))
     return mesh.run(local_fn, shard_rows(padded, n))[0]
 
 
 def _run_plan(phys: PH.PhysicalPlan, ctx: ExecutionContext, profile,
-              tables, indexes):
+              record, tables, indexes):
     if ctx.n_shards is not None:
         # full-table join indexes do not survive the row padding
-        return _run_distributed(phys, ctx, profile, tables)
-    return _LocalExecutor(tables, ctx, indexes, profile).execute(phys)
+        return _run_distributed(phys, ctx, profile, record, tables)
+    return _LocalExecutor(tables, ctx, indexes, profile,
+                          record).execute(phys)
+
+
+def _read_stats(stats) -> Dict[int, Dict[str, int]]:
+    """The walk's noted counters as Python ints: every device scalar read
+    back in ONE transfer (one host sync), however many nodes noted."""
+    flat = [(i, k, v) for i, vals in stats.items() for k, v in vals.items()]
+    dev = [v for _i, _k, v in flat if isinstance(v, torch.Tensor)]
+    read = iter(torch.stack([v.reshape(()).to(torch.int64) for v in dev])
+                .tolist() if dev else ())
+    out: Dict[int, Dict[str, int]] = {}
+    for i, k, v in flat:
+        out.setdefault(int(i), {})[k] = (next(read)
+                                         if isinstance(v, torch.Tensor)
+                                         else int(v))
+    return out
 
 
 class CompiledPlan:
@@ -1360,26 +1503,60 @@ class CompiledPlan:
 
     ``compile_plan`` resolves the plan-cache entry once; each call only
     consults the join-index pool (a lock-protected LRU hit). ``physical``
-    is the physical plan the callable walks."""
+    is the physical plan the callable walks.
 
-    __slots__ = ("plan", "ctx", "fn", "index_specs", "physical", "cache_key")
+    Compiled under telemetry (``record``), each call strips the reserved
+    ``"_stats"`` output, reads it back (one host sync, the price of
+    observing) and folds it into the StatsRegistry under ``cache_key``
+    with the dispatch's wall time. Under tracing, each call adds a
+    ``plan.execute`` span. Its clock is the host's and the launches are
+    asynchronous, so an untracked span covers the host's issue of the
+    plan's work, not its completion on the device (a tracked one ends
+    after the stats' read-back); tracing adds no sync."""
+
+    __slots__ = ("plan", "ctx", "fn", "index_specs", "physical", "cache_key",
+                 "record")
 
     def __init__(self, plan: L.LogicalPlan, ctx: ExecutionContext, fn,
                  index_specs: Tuple[Tuple[str, str], ...],
-                 physical: PH.PhysicalPlan, cache_key: Tuple = ()):
+                 physical: PH.PhysicalPlan, cache_key: Tuple = (),
+                 record: bool = False):
         self.plan = plan
         self.ctx = ctx
         self.fn = fn
         self.index_specs = index_specs
         self.physical = physical
         self.cache_key = cache_key
+        self.record = record
 
     def __call__(self, tables) -> Dict[str, torch.Tensor]:
+        # the tracing flag is read HERE, per dispatch, and is not part of
+        # the plan-cache key: plan.execute is a host-side span around an
+        # unchanged callable
+        if not tracing.tracing_enabled():
+            return self._execute(tables)
+        t0 = time.monotonic()
+        out = self._execute(tables)
+        tracing.tracer().add_complete(
+            "plan.execute", "plan", t0, time.monotonic(), pid="plan",
+            key=hash(self.cache_key), recorded=self.record)
+        return out
+
+    def _execute(self, tables) -> Dict[str, torch.Tensor]:
         indexes = {}
         if self.ctx.n_shards is None:
             for t, c in self.index_specs:
                 indexes[f"{t}.{c}"] = _INDEX_POOL.get(t, c, tables[t][c])
-        return self.fn(tables, indexes)
+        if not self.record:
+            return self.fn(tables, indexes)
+        t0 = time.perf_counter()
+        out = dict(self.fn(tables, indexes))
+        stats = out.pop("_stats", None)
+        if stats is not None:
+            telemetry.registry().record(self.cache_key, self.physical,
+                                        _read_stats(stats),
+                                        time.perf_counter() - t0)
+        return out
 
 
 def compile_plan(plan: L.LogicalPlan, tables,
@@ -1388,18 +1565,54 @@ def compile_plan(plan: L.LogicalPlan, tables,
 
     ``tables`` supplies only the shape signature and device. The active
     CostProfile is snapshotted ONCE: it keys the cache AND parameterizes
-    the lowering. The cache value is the (physical plan, callable) pair."""
+    the lowering. The cache value is the (physical plan, callable) pair.
+    The telemetry flag keys the cache (a recording walk returns extra
+    outputs, so it is never served to an untracked caller); the tracing
+    flag does not."""
     ctx = ctx or ExecutionContext()
     profile = current_cost_profile()
-    key = (plan, ctx.cache_key(), _signature(tables), profile)
+    record = telemetry.telemetry_enabled()
+    key = (plan, ctx.cache_key(), _signature(tables), profile, record)
     entry = _PLAN_CACHE.get(key)
     if entry is None:
+        traced = tracing.tracing_enabled()
+        t0 = time.monotonic() if traced else 0.0
         L.validate(plan)     # fail fast (and once)
         phys = lower(plan, ctx, _true_rows(tables), profile)
-        entry = (phys, functools.partial(_run_plan, phys, ctx, profile))
+        entry = (phys, functools.partial(_run_plan, phys, ctx, profile,
+                                         record))
         _PLAN_CACHE.put(key, entry)
+        if traced:
+            # the lowering a cache hit amortizes away
+            tracing.tracer().add_complete(
+                "plan.compile", "plan", t0, time.monotonic(), pid="plan",
+                key=hash(key))
+    elif record:
+        entry = _maybe_replan(key, entry, plan, ctx, profile, tables)
     phys, fn = entry
-    return CompiledPlan(plan, ctx, fn, required_indexes(plan.root), phys, key)
+    return CompiledPlan(plan, ctx, fn, required_indexes(plan.root), phys, key,
+                        record)
+
+
+def _maybe_replan(key, entry, plan, ctx, profile, tables):
+    """Adaptive re-planning on a plan-cache HIT: when the registry marked
+    this plan as drifting, re-lower with the OBSERVED per-join alive rows
+    and swap the cache entry if any decision flipped. Results stay
+    bit-identical (the observed hook only steers the broadcast-vs-
+    partitioned cost choice), and a re-lowering whose decisions all stand
+    gives a structurally identical tree, so the existing entry stays."""
+    reg = telemetry.registry()
+    if not reg.should_replan(key):
+        return entry
+    reg.note_replan_checked(key)
+    phys = lower(plan, ctx, _true_rows(tables), profile,
+                 observed=reg.observed_joins(key))
+    if phys == entry[0]:
+        return entry
+    entry = (phys, functools.partial(_run_plan, phys, ctx, profile, True))
+    _PLAN_CACHE.put(key, entry)
+    reg.note_replanned(key, phys)
+    return entry
 
 
 def execute_plan(plan: L.LogicalPlan, tables,
@@ -1532,3 +1745,7 @@ def explain_physical(plan: L.LogicalPlan, tables,
     return PH.describe(lower(plan, ctx, _true_rows(tables),
                              n_shards=n_shards))
 
+
+# explain_analyze (execute under telemetry, annotate the tree with observed
+# rows) lives in telemetry.py; re-exported here beside explain_physical.
+explain_analyze = telemetry.explain_analyze

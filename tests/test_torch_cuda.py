@@ -541,3 +541,70 @@ def test_cuda_wkv6_reads_unaligned_strided_inputs(dev, cut):
     got = wkv6(r, k, v, w, u)
     want = wkv6_ref(*(x.contiguous() for x in (r, k, v, w)), u)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# W2 / W3 on one device, and telemetry on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,cf", [(8, 2.0), (64, 2.0), (8, 0.5)])
+def test_cuda_hash_join_equals_plain(dev, P, cf):
+    from repro_torch.analytics.datasets import blanas_join, to_tensors
+    from repro_torch.analytics.join import hash_join
+    jd = to_tensors(blanas_join(20_000, 320_000, seed=P), dev)
+    args = (jd["build_keys"], jd["build_vals"], jd["probe_keys"])
+    before = common.LAUNCHES["join_probe"]
+    got = hash_join(*args, n_partitions=P, capacity_factor=cf)
+    assert common.LAUNCHES["join_probe"] == before + 1
+    want = hash_join(*args, n_partitions=P, capacity_factor=cf, mode="ref")
+    assert int(got[0]) == int(want[0]) and int(got[2]) == int(want[2])
+    assert got[1].view(torch.int32).item() == want[1].view(torch.int32).item()
+    if cf >= 2.0:
+        assert int(got[0]) == 320_000 and int(got[2]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,card,P,cf", [(200_000, 15_625, 64, 2.0),
+                                         (100_000, 1000, 8, 0.5)])
+def test_cuda_count_partitioned_equals_plain(dev, n, card, P, cf):
+    from repro_torch.analytics.aggregate import count_direct, count_partitioned
+    from repro_torch.analytics.datasets import to_tensors, zipf
+    keys = to_tensors(zipf(n, card, seed=1), dev)["keys"]
+    before = common.LAUNCHES["hash_aggregate_multi"]
+    got, ovf = count_partitioned(keys, card, n_partitions=P,
+                                 capacity_factor=cf)
+    assert common.LAUNCHES["hash_aggregate_multi"] == before + 1
+    want, want_ovf = count_partitioned(keys, card, n_partitions=P,
+                                       capacity_factor=cf, mode="ref")
+    assert int(ovf) == int(want_ovf)
+    assert torch.equal(got, want)
+    if int(ovf) == 0:
+        assert torch.equal(got, count_direct(keys, card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [None, 4])
+def test_cuda_tracked_queries_give_untracked_bits(dev, shards):
+    from repro_torch.analytics import planner, telemetry, tpch
+    from repro_torch.core.config import PlacementPolicy
+    data = tpch.generate(scale=0.01, seed=2, device=dev)
+    ctx = planner.ExecutionContext(
+        executor="kernel", join="kernel" if shards is None else None,
+        n_shards=shards, exchange_impl="radix" if shards else "cost",
+        dist_join="partitioned" if shards else None,
+        policy=PlacementPolicy.INTERLEAVE if shards else None)
+    try:
+        for name, plan in tpch.LOGICAL_QUERIES.items():
+            plain = planner.execute_plan(plan, data.tables, ctx)
+            with telemetry.recording() as reg:
+                cp = planner.compile_plan(plan, data.tables, ctx)
+                tracked = cp(data.tables)
+            assert set(tracked) == set(plain), name
+            for k, v in plain.items():
+                assert torch.equal(torch.nan_to_num(tracked[k], nan=-7.0),
+                                   torch.nan_to_num(v, nan=-7.0)), (name, k)
+            ps = reg.get(cp.cache_key)
+            assert ps.executions == 1 and all(
+                x >= 0 for ns in ps.nodes.values() for x in ns.last.values())
+    finally:
+        telemetry.registry().clear()
