@@ -28,6 +28,17 @@ points:
     same bits, one registry execution per plan; ``explain_analyze`` of q3
     on 8 shards; the recording's cost per call; one traced compile and
     execute;
+  * the serving tier on the SF1 tables, through ``tpch.submit_query`` and
+    ``AnalyticsService``: the 7 queries x 4 clients as whole plans under
+    each thread placement, q1/q6 in morsels of 262,144 rows under the
+    kernel executor, q3/q5/q18 as split probes, q3/q5 with the join
+    kernel forced and q3/q18 on 8 shards, each against serial (the
+    morsel merges against float64 and across placements);
+    ``hash_aggregate_multi`` against its plain version at each shape of
+    the served q1 and q6 morsels; pools x workers of 1x1 and 2x2 on the
+    same 28 requests in 10 rounds each, the idle share and the overlap
+    of the pools' streams; a chaos round; and
+    ``scripts/trace_gate_torch.py`` on the card;
   * W1-W4 on one device at the same sizes, through the entry points of
     ``analytics/aggregate.py`` and ``analytics/join.py``
     (``count_direct``, ``count_partitioned``, ``median_jit``,
@@ -121,34 +132,45 @@ def device_sessions(fn, reps: int):
     work each call, so per record name the calls' launches are the median
     of the sessions' counts over ``reps``, rounded, and each launch takes
     the mean time of that name's records over all sessions. Sessions
-    that disagree on their record counts are printed."""
+    that disagree on their record counts are printed; a session that saw
+    no device record at all lost its records and is run again (at most
+    ``PROFILER_SESSIONS`` more times). Fewer than 2 sessions with
+    records raise: one session alone is not read."""
     import statistics
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    counts, times, totals = {}, {}, []
-    for _ in range(PROFILER_SESSIONS):
+    counts, times, totals, lost = {}, {}, [], 0
+    while (len(totals) < PROFILER_SESSIONS
+           and lost < PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        seen = {}
+        seen, took = {}, {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 seen[e.key] = e.count
-                times[e.key] = times.get(e.key, 0.0) + getattr(
-                    e, "self_device_time_total", 0)
+                took[e.key] = getattr(e, "self_device_time_total", 0)
+        if not seen:
+            lost += 1
+            continue
+        for key, us in took.items():
+            times[key] = times.get(key, 0.0) + us
         for key in set(counts) | set(seen):
             counts.setdefault(key, []).append(seen.get(key, 0))
         totals.append(sum(seen.values()))
-    if len(set(totals)) > 1:
-        log(f"torch.profiler: {PROFILER_SESSIONS} sessions of {reps} "
-            f"calls saw "
-            f"{totals} device records")
+    if len(set(totals)) > 1 or lost:
+        log(f"torch.profiler: {len(totals)} sessions of {reps} calls saw "
+            f"{totals} device records ({lost} more saw none)")
+    if len(totals) < 2:
+        raise RuntimeError(f"torch.profiler: {len(totals)} of "
+                           f"{len(totals) + lost} sessions saw device work")
     per_call = {k: round(statistics.median(
-        c + [0] * (PROFILER_SESSIONS - len(c))) / reps) for k, c in counts.items()}
+        c + [0] * (len(totals) - len(c))) / reps)
+        for k, c in counts.items()}
     per_call = {k: n for k, n in per_call.items() if n}
     if not per_call:
         raise RuntimeError("torch.profiler saw no device work")
@@ -1120,6 +1142,368 @@ def telemetry_phase(data):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: the serving tier at SF1 (analytics/service)
+# ---------------------------------------------------------------------------
+SERVE_MORSEL_ROWS = 262_144
+SERVE_CLIENTS = 4
+SERVE_ROUNDS = 10           # throughput rounds of each pool shape
+# executor-parity tolerance of the morsel-merged sums against float64
+SERVE_ATOL, SERVE_RTOL = 1e-3, 1e-4
+
+
+def serve(config, requests, data):
+    """Submit ``requests`` [(query, context)] to a fresh AnalyticsService,
+    client i % SERVE_CLIENTS each, drain, and return ({index: value},
+    ServiceStats). Every request must complete."""
+    from repro_torch.analytics.service import AnalyticsService
+    from repro_torch.analytics.tpch import submit_query
+    with AnalyticsService(config) as svc:
+        rids = [submit_query(svc, q, data, context=ctx,
+                             client_id=i % SERVE_CLIENTS)
+                for i, (q, ctx) in enumerate(requests)]
+        results = svc.drain()
+        st = svc.stats()
+    bad = [(requests[i][0], results[r].error) for i, r in enumerate(rids)
+           if results[r].value is None]
+    if bad:
+        raise AssertionError(f"served requests failed: {bad}")
+    return {i: results[r].value for i, r in enumerate(rids)}, st
+
+
+def hold_bits(got, want, label):
+    if not same_bits(got, want):
+        raise AssertionError(f"{label}: the served bits differ from "
+                             "serial")
+
+
+def hold_oracle(got, exact, oracle, label):
+    """Morsel-merged results: integers and counts equal to the plain
+    path's, float sums within the executor-parity tolerance of float64."""
+    import numpy as np
+    import torch
+    for k, v in got.items():
+        v = v.cpu()
+        if k in EXACT_KEYS or not v.is_floating_point():
+            if not torch.equal(v, exact[k].cpu()):
+                raise AssertionError(f"{label}/{k}: differs from the plain "
+                                     "path")
+        elif k in oracle:
+            want = oracle[k].cpu().numpy()
+            g = v.to(torch.float64).numpy()
+            if not np.allclose(g, want, atol=SERVE_ATOL, rtol=SERVE_RTOL):
+                raise AssertionError(
+                    f"{label}/{k}: off float64 by "
+                    f"{float(np.max(np.abs(g - want)))} (atol {SERVE_ATOL}, "
+                    f"rtol {SERVE_RTOL})")
+        elif not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{label}/{k}: not finite")
+
+
+def kernel_intervals(trace_path):
+    """{stream: sorted [(start us, end us)]} of the CUDA kernels in a
+    torch.profiler Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            s = e.get("args", {}).get("stream", e.get("tid"))
+            out.setdefault(s, []).append((float(e["ts"]),
+                                          float(e["ts"]) + float(e["dur"])))
+    return {s: sorted(v) for s, v in out.items()}
+
+
+def overlap(a, b):
+    """(pairs of kernels of ``a`` and ``b`` that overlap in time, their
+    summed overlap in us); each list's kernels are disjoint and sorted."""
+    import bisect
+    starts = [s for s, _ in b]
+    ends = [e for _, e in b]
+    pairs, us = 0, 0.0
+    for s, e in a:
+        lo = bisect.bisect_right(ends, s)
+        hi = bisect.bisect_left(starts, e)
+        for j in range(lo, hi):
+            pairs += 1
+            us += min(e, b[j][1]) - max(s, b[j][0])
+    return pairs, us
+
+
+def union_us(intervals):
+    total, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def serve_profiled(config, requests, data):
+    """Kernel intervals by stream of one served round under one
+    torch.profiler session (the trace names streams by the profiler's
+    ids, not by the handles PyTorch gives)."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(tempfile.mkdtemp(prefix="serve_trace_"),
+                        "round.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(config, requests, data)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    return kernel_intervals(path)
+
+
+def service_phase(data, results, oracle):
+    """The serving tier on the SF1 tables: whole plans under the three
+    placements, distributive morsels, split probes, the forced join kernel
+    and the 8-shard composed context through ``tpch.submit_query`` and
+    ``AnalyticsService``, each against serial; then throughput, idle share
+    and pool-stream overlap, a chaos round and the trace gate. Returns
+    (the kernels' launches in the served paths, the first q1 morsel's
+    hash_aggregate_multi call, its max abs error against the plain
+    version)."""
+    import importlib.util
+    import statistics
+    import torch
+    from repro_torch.analytics import columnar, planner
+    from repro_torch.analytics.service import (AnalyticsService,
+                                               RetryPolicy, ServiceConfig,
+                                               ServiceFaultInjector,
+                                               ThreadPlacement)
+    from repro_torch.analytics.tpch import (LOGICAL_QUERIES, run_query,
+                                            submit_query)
+    from repro_torch.kernels import common
+
+    t_phase = time.perf_counter()
+    tables = data.tables
+    cost = planner.ExecutionContext(executor="cost")
+    kernel = planner.ExecutionContext(executor="kernel")
+    forced = planner.ExecutionContext(**CONTEXTS["kernel"])
+    composed = dist_contexts()["composed/INTERLEAVE"]
+    n_li = tables["lineitem"]["l_orderkey"].shape[0]
+    n_ord = tables["orders"]["o_orderkey"].shape[0]
+    per_scan = {"lineitem": -(-n_li // SERVE_MORSEL_ROWS),
+                "orders": -(-n_ord // SERVE_MORSEL_ROWS)}
+    dist_serial = {q: run_query(q, data, context=composed)
+                   for q in ("q3", "q18")}
+    pool = planner.join_index_pool()
+    torch.cuda.synchronize()
+    common.reset_launches()                 # just before the served paths
+
+    # 1. whole plans: 7 queries x 4 clients under each placement
+    mix = [(q, cost) for q in LOGICAL_QUERIES for _ in range(SERVE_CLIENTS)]
+    for placement in ThreadPlacement:
+        got, st = serve(ServiceConfig(n_pools=2, workers_per_pool=2,
+                                      placement=placement), mix, data)
+        for i, (q, _) in enumerate(mix):
+            hold_bits(got[i], results["cost"][q], f"{q}/{placement.value}")
+    log(f"service whole plans: {len(mix)} requests x {len(ThreadPlacement)} "
+        f"placements bit-equal to serial ({st.dispatches} dispatches, "
+        f"{st.dedup_hits} dedup hits a round)")
+
+    # 2. distributive morsels under the kernel executor
+    morsel = {}
+    for placement in ThreadPlacement:
+        got, st = serve(ServiceConfig(
+            n_pools=2, workers_per_pool=2, morsel_rows=SERVE_MORSEL_ROWS,
+            placement=placement), [("q1", kernel), ("q6", kernel)], data)
+        if st.morsels != 2 * per_scan["lineitem"]:
+            raise AssertionError(f"q1+q6 under {placement.value}: "
+                                 f"{st.morsels} morsels, not "
+                                 f"{2 * per_scan['lineitem']}")
+        morsel[placement] = got
+    for placement, got in morsel.items():
+        for i, q in enumerate(("q1", "q6")):
+            hold_bits(got[i], morsel[ThreadPlacement.DENSE][i],
+                      f"{q} morsels under {placement.value} against DENSE")
+            hold_oracle(got[i], results["plain"][q], oracle[q],
+                        f"{q} morsels/{placement.value}")
+    log(f"service morsels: q1/q6 in {per_scan['lineitem']} morsels of "
+        f"{SERVE_MORSEL_ROWS} rows each, the same bits under every "
+        f"placement, within atol {SERVE_ATOL} rtol {SERVE_RTOL} of float64")
+
+    # 3. split probes, from an empty index pool. SPARSE stripes each
+    # task's morsels over both pools and nothing is stolen, so each pool
+    # probes every split build column and makes its replica of it
+    split_q = ("q3", "q5", "q18")
+    pool.clear()
+    got, st = serve(ServiceConfig(n_pools=2, workers_per_pool=2,
+                                  morsel_rows=SERVE_MORSEL_ROWS,
+                                  placement=ThreadPlacement.SPARSE,
+                                  steal=False),
+                    [(q, cost) for q in split_q], data)
+    for i, q in enumerate(split_q):
+        hold_bits(got[i], results["cost"][q], f"{q} split probe")
+    want = 2 * per_scan["lineitem"] + per_scan["orders"]
+    if st.morsels != want:
+        raise AssertionError(f"split probes: {st.morsels} morsels, not "
+                             f"{want}")
+    rows = planner._true_rows(tables)
+    specs, required = set(), set()
+    for q in split_q:
+        split = planner.probe_split(planner.lower(LOGICAL_QUERIES[q], cost,
+                                                  rows))
+        specs |= {p.index for p in split.preludes if p.index is not None}
+        required |= set(planner.required_indexes(LOGICAL_QUERIES[q].root))
+    if pool.replicas != 2 * len(specs) or pool.builds != len(required):
+        raise AssertionError(f"join index pool: {pool.replicas} replicas "
+                             f"and {pool.builds} builds for {sorted(specs)} "
+                             f"split of {sorted(required)}")
+    log(f"service split probes: q3/q5/q18 bit-equal to serial in {want} "
+        f"morsels; {pool.replicas} replicas (2 pools x {sorted(specs)}), "
+        f"{pool.builds} sorts")
+
+    # 4. forced join kernel, whole plans; 5. 8 shards, composed context
+    got, _ = serve(ServiceConfig(n_pools=2, workers_per_pool=2),
+                   [("q3", forced), ("q5", forced), ("q3", composed),
+                    ("q18", composed)], data)
+    hold_bits(got[0], results["kernel"]["q3"], "q3 forced join kernel")
+    hold_bits(got[1], results["kernel"]["q5"], "q5 forced join kernel")
+    hold_bits(got[2], dist_serial["q3"], "q3 composed, 8 shards")
+    hold_bits(got[3], dist_serial["q18"], "q18 composed, 8 shards")
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)        # just after the served paths
+    log(f"service forced join kernel and {N_SHARDS} shards: bit-equal to "
+        f"serial; launches in the served paths {launches}")
+    for name in ("hash_aggregate_multi", "join_probe", "block_histograms"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the served paths never launched {name}")
+    peak_line("service paths")
+
+    # the served morsels' aggregate calls against the plain version, one
+    # check per distinct shape of q1's and q6's (a scan's last morsel is
+    # shorter); q1's first morsel call is timed for the kernel record
+    morsel_call, morsel_err = None, None
+    for q in ("q1", "q6"):
+        calls, seen = [], set()
+        with capture(columnar, "hash_aggregate_multi", calls):
+            serve(ServiceConfig(n_pools=1, workers_per_pool=1,
+                                morsel_rows=SERVE_MORSEL_ROWS),
+                  [(q, kernel)], data)
+        if not calls:
+            raise AssertionError(f"a served {q} morsel never called "
+                                 "hash_aggregate_multi")
+        for args, kw in calls:
+            key = (tuple(args[0].shape), args[1].shape[2], kw["n_bins"])
+            if key in seen:
+                continue
+            seen.add(key)
+            err = check_hash_aggregate(args[0], args[1], kw["n_bins"],
+                                       f"one served {q} morsel")
+            if morsel_call is None:
+                morsel_call, morsel_err = (args, kw), err
+
+    # 6. throughput of 1 pool x 1 worker against 2 pools x 2 workers on
+    # the same 28 requests, one dispatch each (no dedup), in alternating
+    # rounds; the idle share and the streams' overlap from one profiled
+    # 2 x 2 round, its busy time over its own wall
+    card = card_line()
+    shapes = {"1x1": (1, 1), "2x2": (2, 2)}
+    rounds = {label: [] for label in shapes}
+    for _ in range(SERVE_ROUNDS):
+        for label, (n_pools, workers) in shapes.items():
+            cfg = ServiceConfig(n_pools=n_pools, workers_per_pool=workers,
+                                batching=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, st = serve(cfg, mix, data)
+            torch.cuda.synchronize()
+            rounds[label].append((len(mix) / (time.perf_counter() - t0),
+                                  st.latency_p50_ms, st.latency_p99_ms))
+    rates = {}
+    for label, rs in rounds.items():
+        rates[label] = {
+            key: dict(median=statistics.median(col),
+                      quartiles=statistics.quantiles(col, n=4)[::2],
+                      min=min(col), max=max(col))
+            for key, col in zip(("qps", "p50_ms", "p99_ms"), zip(*rs))}
+        rates[label]["qps"]["rounds"] = [r[0] for r in rs]
+    faster = sum(a[0] > b[0] for a, b in zip(rounds["1x1"], rounds["2x2"]))
+    t0 = time.perf_counter()
+    intervals = serve_profiled(
+        ServiceConfig(n_pools=2, workers_per_pool=2, batching=False), mix,
+        data)
+    wall = time.perf_counter() - t0
+    busy = union_us([iv for v in intervals.values() for iv in v]) / 1e6
+    # the pools' two streams run the round's kernels: the two busiest
+    by_count = sorted(intervals, key=lambda k: -len(intervals[k]))
+    if len(by_count) < 2:
+        raise AssertionError(f"a 2-pool round ran kernels on streams "
+                             f"{by_count} only")
+    a, b = intervals[by_count[0]], intervals[by_count[1]]
+    pairs, both_us = overlap(a, b)
+    others = {k: len(intervals[k]) for k in by_count[2:]}
+    log(f"service throughput over {SERVE_ROUNDS} rounds of {len(mix)} "
+        f"requests each [{card}]: {json.dumps(rates)}; 1x1 served more "
+        f"queries/s than the 2x2 round after it in {faster} of "
+        f"{SERVE_ROUNDS} pairs")
+    log(f"service profiled 2x2 round [{card}]: device busy "
+        f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall under the "
+        f"profiler (idle share {1 - busy / wall:.4f}); the two pool streams "
+        f"ran {len(a)} and {len(b)} kernels, {pairs} pairs of them overlap "
+        f"in time for {both_us / 1e3:.3f} ms; kernels on other streams "
+        f"{others}")
+
+    # 7. chaos round: a build failure, a wait poison, a pool killed with
+    # morsels queued, a straggling pool (device work), two waves
+    clean, _ = serve(ServiceConfig(n_pools=2, workers_per_pool=2,
+                                   morsel_rows=SERVE_MORSEL_ROWS),
+                     [("q1", cost), ("q6", cost)], data)
+    refs = {q: results["cost"][q] for q in LOGICAL_QUERIES}
+    refs.update(q1=clean[0], q6=clean[1])
+    faults = ServiceFaultInjector(seed=3, kill_pool_at=(0, 1),
+                                  build_fail_at={1}, poison_wait_at={3},
+                                  straggle_pool=(2, 0.02))
+    cfg = ServiceConfig(n_pools=3, workers_per_pool=2,
+                        morsel_rows=SERVE_MORSEL_ROWS,
+                        placement=ThreadPlacement.SPARSE, faults=faults,
+                        retry=RetryPolicy(max_attempts=3,
+                                          base_backoff_s=0.005,
+                                          max_backoff_s=0.05))
+    with AnalyticsService(cfg) as svc:
+        rids, results_c = [], {}
+        for _ in range(2):
+            rids += [(q, submit_query(svc, q, data, context=cost))
+                     for q in LOGICAL_QUERIES]
+            results_c.update(svc.drain())
+        st = svc.stats()
+        ewma = svc.scheduler.stats().pool_ewma_s
+    if sorted(results_c) != sorted(r for _, r in rids):
+        raise AssertionError("chaos round: not one result per request")
+    for q, r in rids:
+        res = results_c[r]
+        states = [res.value is not None, res.error is not None, res.expired,
+                  res.shed]
+        if sum(states) != 1 or res.value is None:
+            raise AssertionError(f"chaos round {q}: terminal states {states}"
+                                 f" ({res.error})")
+        hold_bits(res.value, refs[q], f"chaos round {q}")
+    fired = (faults.builds_failed, faults.waits_poisoned, faults.pools_killed)
+    if fired != (1, 1, 1) or st.requeued <= 0 or st.dead_pools != (1,):
+        raise AssertionError(f"chaos round: faults fired {fired}, requeued "
+                             f"{st.requeued}, dead pools {st.dead_pools}")
+    log(f"service chaos round: {len(rids)} requests, one terminal result "
+        f"each, all bit-equal; {st.describe()}; requeued {st.requeued}, "
+        f"quarantined {st.quarantined_pools}, pool EWMA s {ewma}")
+
+    # 8. the trace gate's five contracts on the card
+    spec = importlib.util.spec_from_file_location(
+        "trace_gate_torch", os.path.join(ROOT, "scripts",
+                                         "trace_gate_torch.py"))
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    if gate.main([]) != 0:
+        raise AssertionError("trace gate failed on the card")
+    peak_line("service phase")
+    log(f"service phase: {time.perf_counter() - t_phase:.3f} s")
+    return launches, morsel_call, morsel_err
+
+
+# ---------------------------------------------------------------------------
 # phase 7: W1 / W2 / W3 under the four policies at the paper's sizes
 # ---------------------------------------------------------------------------
 W_RECORDS, W_CARD = 100_000_000, 1_000_000      # W1/W2 (datasets.py)
@@ -2042,6 +2426,11 @@ def main() -> int:
     peak_line(f"distributed path, {N_SHARDS} shards")
     tele_launches = telemetry_phase(data)
     peak_line("telemetry and tracing")
+    svc_launches, svc_agg, svc_agg_err = service_phase(data, results, oracle)
+    svc_agg_time = dict(time_hash_aggregate(
+        *svc_agg, f"one served q1 morsel of {SERVE_MORSEL_ROWS} rows, SF1"),
+        max_abs_err=svc_agg_err)
+    log(f"hash_aggregate service morsel timing {json.dumps(svc_agg_time)}")
     del data, results
     wd = WData(dev)
     w_phase(wd, dev)
@@ -2062,6 +2451,8 @@ def main() -> int:
              launches_distributed=dist_launches["hash_aggregate_multi"],
              launches_telemetry=tele_launches["hash_aggregate_multi"],
              launches_w_one_device=w_launches["hash_aggregate_multi"],
+             launches_service=svc_launches["hash_aggregate_multi"],
+             service_morsel_shape=svc_agg_time,
              other_shapes=[agg_times["q1"], dist_agg_time, w_agg_time]),
         dict(name="join_probe", route="cuda",
              source="src/repro_torch/kernels/csrc/join_probe.cu",
@@ -2069,12 +2460,14 @@ def main() -> int:
              launches=launches["join_probe"], max_abs_err=probe_err,
              launches_telemetry=tele_launches["join_probe"],
              launches_w_one_device=w_launches["join_probe"],
+             launches_service=svc_launches["join_probe"],
              **probe_time, other_shapes=[w_probe_time]),
         dict(name="block_histograms", route="cuda",
              source="src/repro_torch/kernels/csrc/radix_partition.cu",
              replaces="src/repro/kernels/radix_partition/kernel.py:35",
              launches=dist_launches["block_histograms"], max_abs_err=0.0,
              launches_telemetry=tele_launches["block_histograms"],
+             launches_service=svc_launches["block_histograms"],
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")

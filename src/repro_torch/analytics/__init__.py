@@ -12,7 +12,9 @@ over the columnar operators (columnar.py) and CUDA kernels, on one
 device or on a virtual mesh of shards under a placement policy
 (engine.py, core/vmesh.py). Telemetry (telemetry.py) records observed
 rows per node and feeds them back into the cost model; tracing
-(tracing.py) records spans on the host.
+(tracing.py) records spans on the host. Concurrent multi-query serving
+(admission queue -> batcher -> morsel scheduler over worker pools, each
+on a CUDA stream of its own) lives in the service/ subpackage.
 """
 from repro_torch.analytics import datasets, physical, plan
 from repro_torch.analytics.aggregate import (count_direct, count_partitioned,

@@ -102,6 +102,21 @@ class Table:
         return Table(merged, self.mask, cache)
 
 
+def concat_slices(parts):
+    """Concatenate (columns, mask) row-slice pairs, in order, into one
+    (columns, mask) pair.
+
+    The merge primitive of the serving tier's split-probe path: each part
+    is one morsel's slice of a per-row pipeline's output, so concatenation
+    in slice order rebuilds the unsliced table bit for bit (a row concat,
+    never a float re-ordering). Dtypes are kept; ``mask`` is None only
+    when every part's mask is None."""
+    cols0, mask0 = parts[0]
+    cols = {c: torch.cat([p[0][c] for p in parts]) for c in cols0}
+    mask = None if mask0 is None else torch.cat([p[1] for p in parts])
+    return cols, mask
+
+
 def segment_sum(data: torch.Tensor, ids: torch.Tensor,
                 n: int) -> torch.Tensor:
     """``jax.ops.segment_sum``: sums rows of ``data`` by ``ids`` into n

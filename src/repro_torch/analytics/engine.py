@@ -28,12 +28,14 @@ every plan onto these primitives; ``dist_count`` / ``dist_median`` /
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
-from repro_torch.analytics.columnar import (segment_distinct, segment_median,
-                                            segment_quantile, segment_sum)
+from repro_torch.analytics.columnar import (concat_slices, segment_distinct,
+                                            segment_median, segment_quantile,
+                                            segment_sum, stacked_group_sums)
 from repro_torch.analytics.hashing import partition_of
 from repro_torch.analytics.physical import ceil128
 from repro_torch.core.config import PlacementPolicy, resolve_device
@@ -431,6 +433,74 @@ def _rebalance_to_interleave(table: torch.Tensor, n: int,
                                                + tuple(table.shape[1:]))])
     shard = comm.psum_scatter(padded) / n
     return comm.all_gather(shard)[:G]
+
+
+# ---------------------------------------------------------------------------
+# morsel-sliced distributive aggregation (the serving scheduler's unit)
+# ---------------------------------------------------------------------------
+# A morsel is a contiguous row range of a scan. The serving scheduler
+# (analytics/service/scheduler.py) runs morsels on its worker pools and
+# merges the per-morsel partials in MORSEL ORDER, so the merged result is
+# the same for a fixed morsel size whichever pool ran which morsel.
+
+def morsel_slices(n_rows: int, morsel_rows: Optional[int]
+                  ) -> List[Tuple[int, int]]:
+    """[lo, hi) row ranges covering n_rows; the last morsel takes the
+    remainder when n_rows is not divisible by morsel_rows. None = one
+    morsel (whole scan)."""
+    if morsel_rows is not None and morsel_rows < 1:
+        raise ValueError("morsel_rows must be >= 1")
+    if morsel_rows is None or morsel_rows >= n_rows:
+        return [(0, n_rows)]
+    return [(lo, min(lo + morsel_rows, n_rows))
+            for lo in range(0, n_rows, morsel_rows)]
+
+
+def morsel_slice_columns(cols: Dict[str, torch.Tensor], lo: int,
+                         length: int) -> Dict[str, torch.Tensor]:
+    """Every column of a scan narrowed to one morsel's rows [lo, lo+length)
+    (views, no copy)."""
+    return {c: a.narrow(0, int(lo), length) for c, a in cols.items()}
+
+
+def morsel_group_sums(keys: torch.Tensor, vals: torch.Tensor, n_groups: int,
+                      *, layout: str = "xla", mode: Optional[str] = None,
+                      n_partitions: int = 64, capacity_factor: float = 2.0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partial (n_groups, C) sums over ONE morsel's (already-sliced) rows,
+    under the same layouts the planner chooses between; the (sums, int32
+    overflow) pair is what ``merge_morsel_partials`` folds."""
+    return stacked_group_sums(
+        keys, vals, n_groups, layout=layout, mode=mode,
+        n_partitions=n_partitions, capacity_factor=capacity_factor)
+
+
+def merge_morsel_partials(partials: Sequence[Tuple[Any, torch.Tensor]]
+                          ) -> Tuple[Any, torch.Tensor]:
+    """Merge per-morsel partials in morsel order.
+
+    Distributive aggregates give (sums, overflow) pairs, left-folded by
+    addition: the fold order is part of the result's float semantics, so
+    merging in sequence order (not completion order) keeps served answers
+    the same under work stealing. Split-probe pipelines give
+    ((columns, mask), overflow): each morsel's slice of the pre-aggregate
+    table, concatenated in sequence order (``concat_slices``), which
+    rebuilds the serial table bit for bit."""
+    if not partials:
+        raise ValueError("no morsel partials to merge")
+    head = partials[0][0]
+    if isinstance(head, tuple) and len(head) == 2 and isinstance(
+            head[0], dict):
+        merged = concat_slices([p[0] for p in partials])
+        overflow = partials[0][1]
+        for _, o in partials[1:]:
+            overflow = overflow + o
+        return merged, overflow
+    sums, overflow = partials[0]
+    for s, o in partials[1:]:
+        sums = sums + s
+        overflow = overflow + o
+    return sums, overflow
 
 
 # ---------------------------------------------------------------------------

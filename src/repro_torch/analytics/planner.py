@@ -457,32 +457,68 @@ class JoinIndexPool:
     The key is ``id`` plus an identity check against a WEAK reference, so
     recycled ids never alias and the pool never keeps a dropped dataset
     alive on the device. Each index is built once and shared by every
-    query that joins through the same build column."""
+    query that joins through the same build column.
+
+    On a CUDA device an index is made on the building thread's stream and
+    may be read on another (the serving tier's worker pools each issue on
+    a stream of their own): each entry holds an event recorded after its
+    build, and every fetch makes the caller's current stream wait on it
+    and marks the tensors as used there (``record_stream``), so the
+    allocator never hands their memory out while that stream may still
+    read it."""
 
     def __init__(self, maxsize: int = 256):
         self._lru = LRUCache(maxsize)
         self.builds = 0
+        self.replicas = 0
 
     def get(self, table: str, column: str,
             arr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         key = (table, column, id(arr))
         hit = self._lru.get(key)
         if hit is not None and hit[0]() is arr:
-            return hit[1]
+            return _fetched(hit)
         # the argsort runs outside the lock: concurrent first-touchers may
         # both build (one entry survives), never blocking each other
         order = torch.argsort(arr, stable=True)
         idx = (order, arr[order])
         with self._lru._lock:
-            self._lru.put(key, (weakref.ref(arr), idx))
+            self._lru.put(key, (weakref.ref(arr), idx, _built(arr.device)))
             self.builds += 1
+            self._sweep_dead()
+        return idx
+
+    def replica(self, table: str, column: str, arr: torch.Tensor,
+                pool_id: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A per-worker-pool copy of ``get``'s (order, sorted_keys) pair:
+        the build-side replication of the paper's socket-local working
+        sets. The base index is computed ONCE (``builds`` counts sorts);
+        each pool then gets its own copy (``replicas`` counts them), made
+        on the calling pool's current stream, so every probe morsel a pool
+        runs reads a pool-local build structure. Values are bit-identical
+        to the base index by construction."""
+        key = (table, column, id(arr), "replica", int(pool_id))
+        hit = self._lru.get(key)
+        if hit is not None and hit[0]() is arr:
+            return _fetched(hit)
+        order, sk = self.get(table, column, arr)     # base: built once
+        with self._lru._lock:
+            # double-check under the lock: two workers of the SAME pool
+            # can race their pool's first morsel, and "one replica per
+            # pool" is the accounting invariant
+            hit = self._lru.get(key)
+            if hit is not None and hit[0]() is arr:
+                return _fetched(hit)
+            idx = (order.clone(), sk.clone())
+            self._lru.put(key, (weakref.ref(arr), idx, _built(arr.device)))
+            self.replicas += 1
             self._sweep_dead()
         return idx
 
     def _sweep_dead(self) -> None:
         with self._lru._lock:
-            dead = [k for k, (ref, _) in self._lru._d.items()
-                    if ref() is None]
+            dead = [k for k, entry in self._lru._d.items()
+                    if entry[0]() is None]
             for k in dead:
                 del self._lru._d[k]
 
@@ -492,6 +528,28 @@ class JoinIndexPool:
     def clear(self) -> None:
         self._lru.clear()
         self.builds = 0
+        self.replicas = 0
+
+
+def _built(device: torch.device) -> Optional["torch.cuda.Event"]:
+    """An event on ``device``'s current stream after a build (None on the
+    CPU, where there are no streams)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _fetched(entry) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A pooled index, safe to read on the caller's current stream."""
+    _ref, idx, ready = entry
+    if ready is not None:
+        stream = torch.cuda.current_stream(idx[0].device)
+        stream.wait_event(ready)
+        for t in idx:
+            t.record_stream(stream)
+    return idx
 
 
 _INDEX_POOL = JoinIndexPool()
@@ -510,6 +568,126 @@ def required_indexes(root: L.Node) -> Tuple[Tuple[str, str], ...]:
             if sc is not None and (sc.table, node.build_key) not in out:
                 out.append((sc.table, node.build_key))
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# morsel-split probe analysis (the serving scheduler's split-probe oracle)
+# ---------------------------------------------------------------------------
+def _physical_base_scan(node: PH.PNode, column: str) -> Optional[PH.PScan]:
+    """The PScan whose ``column`` reaches ``node`` value-identical (same
+    rows, same order, never overwritten), or None: the physical twin of
+    L.base_scan. It certifies that the pooled (order, sorted_keys) index
+    built from the base table's column is valid for this node's Table.
+    Filter only masks, a local Join's output rows ARE its probe rows,
+    Project/Attach only add columns (unless they shadow ``column``)."""
+    while True:
+        if isinstance(node, PH.PScan):
+            return node
+        if isinstance(node, PH.PFilter):
+            node = node.child
+        elif isinstance(node, PH.PProject):
+            if any(n == column for n, _ in node.cols):
+                return None
+            node = node.child
+        elif isinstance(node, PH.PJoin):
+            if node.dist is not None or any(n == column
+                                            for n, _ in node.take):
+                return None
+            node = node.probe
+        elif isinstance(node, PH.PAttach):
+            if any(n == column for n, _ in node.cols):
+                return None
+            node = node.child
+        else:
+            return None
+
+
+@dataclass(frozen=True)
+class PreludeSpec:
+    """One subtree of a split-probe plan that runs ONCE per task (not per
+    morsel): a join build side or an Attach source. ``is_table`` says
+    whether its result is a Table (handed to the morsels as (columns,
+    mask)) or a dict of group tensors; ``index`` is the (table, column)
+    pooled sort index a pool-local replica seeds into the rebuilt build
+    Table's index_cache (None for Attach sources, which need none)."""
+    node: PH.PNode
+    is_table: bool
+    index: Optional[Tuple[str, str]]
+
+
+@dataclass(frozen=True)
+class ProbeSplit:
+    """probe_split()'s answer: what the serving scheduler needs to run a
+    marked join-probe pipeline as per-pool morsels. ``scan`` is the
+    probe-side base scan (the morsel axis), ``pipeline_root`` the
+    aggregate's input (every node between scan and aggregate is per-row
+    deterministic, so the morsel outputs concatenated in morsel order are
+    the serial intermediate table bit for bit), ``preludes`` the
+    once-per-task subtrees, ``root`` / ``outputs`` what the finalize step
+    runs over the merged table."""
+    root: PH.PNode
+    outputs: Optional[Tuple[str, ...]]
+    scan: PH.PScan
+    pipeline_root: PH.PNode
+    preludes: Tuple[PreludeSpec, ...]
+    n_rows: int
+
+
+def probe_split(phys: PH.PhysicalPlan) -> Optional[ProbeSplit]:
+    """Decompose a LOCAL physical plan into a morsel-splittable probe
+    pipeline, or None when the plan must run whole.
+
+    Splittable = (optional PTopK over) a PAggregate whose child chain down
+    to one PScan is Filter/Project/Join/Attach where EVERY join is
+    ``morsel_split``-marked (sorted strategy, probe side past the
+    cost-model crossover) with a resolvable base-scan build index. Each
+    on-path operator is per-row deterministic over the probe rows, so a
+    row-range slice of the scan yields exactly that slice of the serial
+    intermediate table. Declines rather than degrade: an unresolvable
+    build index would force a per-morsel argsort, and a kernel-strategy
+    join changes overflow semantics under slicing."""
+    if phys.n_shards != 1:
+        return None
+    node = phys.root
+    while isinstance(node, PH.PTopK):
+        node = node.child
+    if not isinstance(node, PH.PAggregate):
+        return None
+    preludes: List[PreludeSpec] = []
+    path: List[PH.PNode] = []
+    cur = node.child
+    while not isinstance(cur, PH.PScan):
+        path.append(cur)
+        if isinstance(cur, (PH.PFilter, PH.PProject)):
+            cur = cur.child
+        elif isinstance(cur, PH.PJoin):
+            if not cur.morsel_split:
+                return None          # cost model declined (or kernel join)
+            base = _physical_base_scan(cur.build, cur.build_key)
+            if base is None:
+                return None          # no poolable build index: stay whole
+            preludes.append(PreludeSpec(
+                cur.build, True, (base.table, cur.build_key)))
+            cur = cur.probe
+        elif isinstance(cur, PH.PAttach):
+            src = cur.source
+            preludes.append(PreludeSpec(
+                src, not isinstance(src, (PH.PAggregate, PH.PTopK)), None))
+            cur = cur.child
+        else:
+            return None
+    if not any(p.index is not None for p in preludes):
+        return None                  # no join probe to parallelize
+    scan = cur
+    path.append(scan)
+    # a prelude subtree structurally EQUAL to a path node would collide in
+    # the executor's structural memo (the path is seeded with morsel
+    # slices, the prelude with whole tables): decline such shapes
+    path_set = set(path)
+    if any(p.node in path_set for p in preludes):
+        return None
+    return ProbeSplit(phys.root, phys.outputs, scan, node.child,
+                      tuple(preludes), scan.rows)
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +1091,8 @@ class _LocalExecutor:
 
     def __init__(self, tables, ctx: ExecutionContext, indexes,
                  profile: Optional[CostProfile] = None,
-                 record: bool = False):
+                 record: bool = False,
+                 device: Optional[torch.device] = None):
         self.tables = tables
         self.ctx = ctx
         self.indexes = indexes           # {"table.column": (order, sk)}
@@ -921,7 +1100,9 @@ class _LocalExecutor:
         self.agg_cf = ((profile.partition_capacity_factor
                         if profile is not None else None)
                        or ctx.capacity_factor)
-        self.device = _device_of(tables)
+        # ``device`` places an executor that has no tables (the serving
+        # tier's split-probe finalize walks a merged table only)
+        self.device = _device_of(tables) if tables else device
         self.overflow = torch.zeros((), dtype=torch.int32, device=self.device)
         self._memo: Dict[PH.PNode, object] = {}
         self.record = record
@@ -1439,6 +1620,20 @@ def table_signature(tables) -> Tuple:
     the plan-cache key that identifies structurally identical data (the
     device is part of it, so CPU and CUDA tables keep separate entries)."""
     return _signature(tables)
+
+
+def cached_executable(key: Tuple, build):
+    """Fetch-or-build a callable in the shared bounded plan LRU.
+
+    The seam for auxiliary callables that must live under the same cache
+    bound and thread-safety as compiled plans (the serving scheduler's
+    per-morsel functions). ``key`` starts with a distinguishing tag so it
+    never collides with compile_plan's keys."""
+    fn = _PLAN_CACHE.get(key)
+    if fn is None:
+        fn = build()
+        _PLAN_CACHE.put(key, fn)
+    return fn
 
 
 def _true_rows(tables) -> Dict[str, int]:

@@ -230,6 +230,29 @@ def get_plan(name: str, executor: str) -> Callable:
     return lambda tbls: planner.execute_plan(LOGICAL_QUERIES[name], tbls, ctx)
 
 
+def submit_query(service, name: str, data, *, executor: str = "xla",
+                 context: Optional[planner.ExecutionContext] = None,
+                 deadline_s: Optional[float] = None,
+                 client_id: int = 0, priority: int = 1,
+                 device: Union[None, str, torch.device] = None
+                 ) -> Optional[int]:
+    """Admit one of the TPC-H logical plans into an AnalyticsService.
+
+    The concurrent-serving counterpart of ``run_query``, with the same
+    query names, knobs and defaults, and the same placement of ``data``
+    (tensors where they lie, numpy columns to ``device``, the CUDA device
+    unless the caller names another). Non-blocking: returns the request
+    id (collect via ``service.drain()``), or None under backpressure.
+    Served results on the whole-plan path are bit-identical to
+    ``run_query`` with the same context: both run the planner's
+    plan-cache entry on the same tables."""
+    tables = _tables(data, device)
+    ctx = context or planner.ExecutionContext(executor=executor)
+    return service.submit(LOGICAL_QUERIES[name], tables, context=ctx,
+                          deadline_s=deadline_s, client_id=client_id,
+                          priority=priority)
+
+
 def run_query(name: str, data, *, executor: str = "xla",
               context: Optional[planner.ExecutionContext] = None,
               device: Union[None, str, torch.device] = None

@@ -608,3 +608,152 @@ def test_cuda_tracked_queries_give_untracked_bits(dev, shards):
                 x >= 0 for ns in ps.nodes.values() for x in ns.last.values())
     finally:
         telemetry.registry().clear()
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on pool streams (analytics/service/scheduler.py)
+# ---------------------------------------------------------------------------
+def _same_bits(got, want, label):
+    assert set(got) == set(want), label
+    for k, v in want.items():
+        assert torch.equal(torch.nan_to_num(got[k], nan=-7.0),
+                           torch.nan_to_num(v, nan=-7.0)), (label, k)
+
+
+def _late_tables(dev, scale, seed):
+    """TPC-H tables whose columns the default stream writes only after a
+    ~50 ms spin: a pool stream that read them without waiting for the
+    submitting stream would read memory not yet written."""
+    from repro_torch.analytics import tpch
+    data = tpch.generate(scale=scale, seed=seed, device=dev)
+    torch.cuda._sleep(100_000_000)
+    return {t: {c: a.clone() for c, a in cols.items()}
+            for t, cols in data.tables.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("morsel_rows", [None, 50_000])
+def test_cuda_served_on_pool_streams_equals_serial(dev, morsel_rows):
+    """Submitted right after the tables were made, with no synchronize:
+    each pool stream waits on the submitting stream's event. Served bits
+    equal the serial run (whole plans, split-probe q3/q5/q18) and, for
+    q1/q6's morsel merge (another float order than serial), a second
+    round served on the finished tables."""
+    from repro_torch.analytics import planner, tpch
+    from repro_torch.analytics.service import (AnalyticsService,
+                                               ServiceConfig)
+    tables = _late_tables(dev, 0.05, 3)
+    ctx = planner.ExecutionContext(executor="cost")
+    rounds = []
+    for _ in range(2):
+        with AnalyticsService(ServiceConfig(
+                n_pools=2, workers_per_pool=2,
+                morsel_rows=morsel_rows)) as svc:
+            rids = {n: tpch.submit_query(svc, n, tables, context=ctx)
+                    for n in tpch.LOGICAL_QUERIES}
+            results = svc.drain()
+            st = svc.stats()
+        assert st.completed == len(rids), st.describe()
+        streams = {s for p in svc.scheduler.pools
+                   for s in p.streams.values()}
+        assert len(streams) == 2
+        assert torch.cuda.current_stream(dev) not in streams
+        rounds.append({n: results[r].value for n, r in rids.items()})
+        torch.cuda.synchronize()
+    for name, got in rounds[0].items():
+        if morsel_rows is not None and name in ("q1", "q6"):
+            want = rounds[1][name]
+        else:
+            want = tpch.run_query(name, tables, context=ctx)
+        _same_bits(got, want, name)
+
+
+@pytest.mark.cuda
+def test_cuda_served_result_outlives_its_pool_stream(dev):
+    """Serve, consume the result on the default stream behind a spin,
+    drop it at once, serve again: the result's memory is not handed back
+    to its pool's stream until the default stream has read it."""
+    from repro_torch.analytics import planner, tpch
+    from repro_torch.analytics.service import (AnalyticsService,
+                                               ServiceConfig)
+    data = tpch.generate(scale=0.05, seed=4, device=dev)
+    ctx = planner.ExecutionContext(executor="cost")
+    want = {n: tpch.run_query(n, data, context=ctx) for n in ("q1", "q3")}
+    torch.cuda.synchronize()
+    copies = []
+    with AnalyticsService(ServiceConfig(n_pools=1,
+                                        workers_per_pool=1)) as svc:
+        for _ in range(3):
+            rids = {n: tpch.submit_query(svc, n, data, context=ctx)
+                    for n in want}
+            results = svc.drain()
+            torch.cuda._sleep(50_000_000)
+            copies.append({n: {k: v.clone() for k, v in
+                               results[rid].value.items()}
+                           for n, rid in rids.items()})
+            del results          # dropped while the clones are queued
+    torch.cuda.synchronize()
+    for got in copies:
+        for n in want:
+            _same_bits(got[n], want[n], n)
+
+
+@pytest.mark.cuda
+def test_cuda_split_probe_finalize_stays_on_the_card(dev):
+    """The split-probe finalize walks a merged table with no tables of its
+    own: every output, ``_overflow`` too, lies on the card."""
+    from repro_torch.analytics import planner, tpch
+    from repro_torch.analytics.service import (AnalyticsService,
+                                               ServiceConfig)
+    data = tpch.generate(scale=0.05, seed=5, device=dev)
+    ctx = planner.ExecutionContext(executor="cost")
+    with AnalyticsService(ServiceConfig(n_pools=2, workers_per_pool=1,
+                                        morsel_rows=50_000)) as svc:
+        rids = {n: tpch.submit_query(svc, n, data, context=ctx)
+                for n in ("q3", "q5", "q18")}
+        results = svc.drain()
+        st = svc.stats()
+    assert st.morsels > len(rids)                # the probes did split
+    for name, rid in rids.items():
+        value = results[rid].value
+        assert value is not None, results[rid].error
+        assert all(v.device.type == "cuda" for v in value.values()), name
+        _same_bits(value, tpch.run_query(name, data, context=ctx), name)
+
+
+@pytest.mark.cuda
+def test_cuda_straggler_of_device_work_is_quarantined(dev, monkeypatch):
+    """Pool 1 straggles by 80 ms of device work per morsel (a spin kernel
+    on its stream, no host sleep; longer than the service's 50 ms wait
+    tick, where the sweep runs): the morsel's end synchronizes the
+    stream, so the EWMA sees the device time and the sweep quarantines
+    the pool."""
+    import time as time_mod
+    from repro_torch.analytics import planner, tpch
+    from repro_torch.analytics.service import (AnalyticsService,
+                                               ServiceConfig,
+                                               ServiceFaultInjector)
+    slept = []
+    real_sleep = time_mod.sleep
+    monkeypatch.setattr(time_mod, "sleep",
+                        lambda s: slept.append(s) or real_sleep(s))
+    data = tpch.generate(scale=0.01, seed=6, device=dev)
+    ctx = planner.ExecutionContext(executor="xla")
+    want = tpch.run_query("q6", data, context=ctx)
+    faults = ServiceFaultInjector(seed=3, straggle_pool=(1, 0.08))
+    cfg = ServiceConfig(n_pools=2, workers_per_pool=1, batching=False,
+                        steal=False, straggler_warmup=2,
+                        straggler_threshold=4.0, faults=faults, retry=None)
+    with AnalyticsService(cfg) as svc:
+        rids = [tpch.submit_query(svc, "q6", data, context=ctx)
+                for _ in range(14)]
+        results = svc.drain()
+        st = svc.stats()
+        ewma = svc.scheduler.stats().pool_ewma_s
+    assert 1 in st.quarantined_pools and st.dead_pools == (), st.describe()
+    # the spin counts SM cycles at a rate measured once; the clock moves
+    # with load, so the device time is near the 80 ms, not exact
+    assert ewma[1] >= 0.04 and ewma[1] > 4 * ewma[0], ewma
+    assert 0.08 not in slept                     # the delay was device work
+    for rid in rids:
+        _same_bits(results[rid].value, want, "q6")
