@@ -39,6 +39,18 @@ points:
     same 28 requests in 10 rounds each, the idle share and the overlap
     of the pools' streams; a chaos round; and
     ``scripts/trace_gate_torch.py`` on the card;
+  * the planner's cost model fitted on the card: ``main`` of
+    ``scripts/calibrate_costs_torch.py`` at SF1 sizes (the base fit over
+    lineitem's rows, the group sweep to 131,072 groups, the join, Exchange
+    and split-probe crossovers on 8 virtual shards and 2 x 2 pools), with
+    its ``hash_aggregate_multi`` and ``block_histograms`` launches
+    counted, the constants checked (finite, positive, the per-pass slope
+    above its runs' spread) and a copy refreshed from telemetry; then the 7
+    queries under ``cost`` on one device and on 8 shards x 4 policies
+    under the builtin and the fitted profile: the decisions that differ,
+    the fitted runs held to the gates above, bit-equal to the builtin's
+    where the plan is unchanged, and warm ms of both (the ``calibration``
+    line);
   * W1-W4 on one device at the same sizes, through the entry points of
     ``analytics/aggregate.py`` and ``analytics/join.py``
     (``count_direct``, ``count_partitioned``, ``median_jit``,
@@ -68,8 +80,9 @@ peak memory per phase. Any failed phase exits non-zero. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
 
-The last lines of standard output are the kernels' JSON record, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines of standard output are the calibration report, the
+kernels' JSON record, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -210,6 +223,16 @@ def bound_ms(n_bytes: float, n_ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def load_script(name: str):
+    """The module of ``scripts/<name>.py``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @contextlib.contextmanager
 def capture(module, name: str, store: list, keep: int | None = None):
     """Record the arguments of every call to ``module.name`` (of the first
@@ -219,6 +242,27 @@ def capture(module, name: str, store: list, keep: int | None = None):
     def wrapper(*args, **kwargs):
         if keep is None or len(store) < keep:
             store.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def capture_largest(module, name: str, store: dict, kind, size):
+    """Keep, for each ``kind(args, kwargs)``, the arguments of the call to
+    ``module.name`` with the largest ``size(args, kwargs)``: a few
+    distinct shapes of a run that makes many calls, without holding
+    every call's tensors."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        k, n = kind(args, kwargs), size(args, kwargs)
+        if k not in store or n > store[k][0]:
+            store[k] = (n, args, kwargs)
         return orig(*args, **kwargs)
 
     setattr(module, name, wrapper)
@@ -1266,7 +1310,6 @@ def service_phase(data, results, oracle):
     (the kernels' launches in the served paths, the first q1 morsel's
     hash_aggregate_multi call, its max abs error against the plain
     version)."""
-    import importlib.util
     import statistics
     import torch
     from repro_torch.analytics import columnar, planner
@@ -1491,16 +1534,284 @@ def service_phase(data, results, oracle):
         f"quarantined {st.quarantined_pools}, pool EWMA s {ewma}")
 
     # 8. the trace gate's five contracts on the card
-    spec = importlib.util.spec_from_file_location(
-        "trace_gate_torch", os.path.join(ROOT, "scripts",
-                                         "trace_gate_torch.py"))
-    gate = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gate)
-    if gate.main([]) != 0:
+    if load_script("trace_gate_torch").main([]) != 0:
         raise AssertionError("trace gate failed on the card")
     peak_line("service phase")
     log(f"service phase: {time.perf_counter() - t_phase:.3f} s")
     return launches, morsel_call, morsel_err
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the planner's cost model fitted on the card, and the SF1 paths
+# under the fitted profile
+# ---------------------------------------------------------------------------
+CALIB_COLS = (1, 2, 3, 4, 6)
+CALIB_GROUPS = tuple(512 << i for i in range(9))                # ... 131072
+CALIB_DIST_BUILDS = tuple(1 << b for b in range(10, 21, 2))     # ... 2^20
+CALIB_EXCHANGE_BUILD = 1 << 17                    # ~ customer at SF1
+CALIB_EXCHANGE_PROBES = tuple(1 << b for b in range(16, 24))    # ... 2^23
+CALIB_MORSEL_PROBES = tuple(1 << b for b in range(12, 23, 2))   # ... 2^22
+FITTED = ("fused_fixed", "fused_per_col", "sort_pass_factor",
+          "dense_group_limit", "partition_capacity_factor",
+          "dist_route_factor", "radix_route_factor", "morsel_split_rows")
+# entries of raw_us that count rows or name a choice, not microseconds
+NOT_TIMES = ("overflow_at_cf", "cost_picks", "moved_rows")
+
+
+def raw_times(node, path="raw_us"):
+    """(path, value) of every timing in a profile's raw_us."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if k not in NOT_TIMES:
+                yield from raw_times(v, f"{path}/{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from raw_times(v, f"{path}/{i}")
+    else:
+        yield path, node
+
+
+def check_profile(prof) -> dict:
+    """Fail unless every fitted constant is finite and positive, every
+    timing is positive, the per-pass slope exceeds the spread (distance
+    between quartiles) of the runs of each baseline point (a slope inside
+    the noise prices nothing), and no single width sets the slope: the
+    least-squares slope of t_xla(C), which the fit takes as the pass, is
+    within a factor of 1.5 of the median of the slopes between every two
+    widths, which one bent point cannot move (a slow gather at one width
+    would otherwise become the unit of every constant). Returns the
+    largest spread and both slopes."""
+    import itertools
+    import math
+    import numpy as np
+    for k in FITTED:
+        v = prof.get(k)
+        if not isinstance(v, (int, float)) or not math.isfinite(v) or v <= 0:
+            raise AssertionError(f"calibration: {k} = {v!r}")
+    for path, v in raw_times(prof["raw_us"]):
+        if not isinstance(v, (int, float)) or not v > 0:
+            raise AssertionError(f"calibration: {path} = {v!r}")
+    spread = max(r[3 * len(r) // 4] - r[len(r) // 4]
+                 for r in prof["raw_us"]["xla_runs"].values())
+    if not prof["pass_time_us"] > spread:
+        raise AssertionError(
+            f"calibration: the per-pass slope {prof['pass_time_us']} us is "
+            f"inside the spread {spread} us of its own runs")
+    xla = {int(c): t for c, t in prof["raw_us"]["xla"].items()}
+    cols = sorted(xla)
+    slope = float(np.polyfit(cols, [xla[c] for c in cols], 1)[0])
+    robust = float(np.median([(xla[b] - xla[a]) / (b - a) for a, b in
+                              itertools.combinations(cols, 2)]))
+    if not slope / 1.5 <= robust <= slope * 1.5:
+        raise AssertionError(
+            f"calibration: the per-pass slope {slope:.1f} us rests on one "
+            f"width: the median slope between widths is {robust:.1f} us "
+            f"(t_xla {prof['raw_us']['xla']})")
+    return {"spread_us": spread, "slope_us": round(slope, 1),
+            "median_pair_slope_us": round(robust, 1)}
+
+
+def calibration_phase(data, plain, oracle):
+    """Fit the cost profile on the card through
+    ``scripts/calibrate_costs_torch.py`` at SF1 sizes, refresh a copy of
+    it from telemetry, then run the 7 queries under ``cost`` on one device
+    and on 8 shards under each policy with the builtin and the fitted
+    profile (``sf1_under_profile``). Returns (the fit's kernel launches,
+    the report)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.analytics import columnar, engine, planner
+    from repro_torch.kernels import common
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calib = load_script("calibrate_costs_torch")
+    rows = data.tables["lineitem"]["l_orderkey"].shape[0]
+    argv = (["--rows", str(rows), "--groups", "512",
+             "--cols", *map(str, CALIB_COLS),
+             "--sweep-groups", "--groups-sweep", *map(str, CALIB_GROUPS),
+             "--dist", "--dist-devices", str(N_SHARDS),
+             "--dist-probe", str(rows),
+             "--dist-builds", *map(str, CALIB_DIST_BUILDS),
+             "--exchange", "--exchange-build", str(CALIB_EXCHANGE_BUILD),
+             "--exchange-probes", *map(str, CALIB_EXCHANGE_PROBES),
+             "--morsel", "--morsel-probes", *map(str, CALIB_MORSEL_PROBES)])
+    report = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "cost_profile.json")
+            aggs, hists = {}, {}
+            torch.cuda.synchronize()
+            common.reset_launches()           # just before the fit
+            t0 = time.perf_counter()
+            with capture_largest(
+                    columnar, "hash_aggregate_multi", aggs,
+                    kind=lambda a, kw: ("dense" if a[0].shape[0] <= 8
+                                        else "partitioned", a[1].shape[2]),
+                    size=lambda a, kw: kw["n_bins"] * a[0].numel()), \
+                    capture_largest(
+                        engine, "block_histograms", hists,
+                        kind=lambda a, kw: (kw["n_bins"], kw["block"]),
+                        size=lambda a, kw: a[0].numel()):
+                if calib.main(argv + ["--out", path]) != 0:
+                    raise AssertionError("calibrate_costs_torch failed")
+            torch.cuda.synchronize()
+            launches = dict(common.LAUNCHES)  # just after it
+            fit_s = time.perf_counter() - t0
+            log(f"calibration: fit in {fit_s:.3f} s, launches {launches}")
+            for name in ("hash_aggregate_multi", "block_histograms"):
+                if launches[name] <= 0:
+                    raise AssertionError(f"the calibration never launched "
+                                         f"{name}")
+            # the fit's own shapes against the plain versions, outside
+            # the count: per layout and width the call with the most
+            # bins x rows, and the largest radix Exchange
+            checked = []
+            for (layout, C), (_n, a, kw) in sorted(aggs.items()):
+                err = check_hash_aggregate(a[0], a[1], kw["n_bins"],
+                                           f"calibration {layout} C={C}")
+                checked.append(dict(kernel="hash_aggregate_multi",
+                                    layout=layout, ids=list(a[0].shape),
+                                    C=C, n_bins=kw["n_bins"],
+                                    max_abs_err=err))
+            for (n_bins, block), (_n, a, kw) in sorted(hists.items()):
+                check_block_histograms(a[0], n_bins, kw["shift"], block,
+                                       "calibration radix Exchange")
+                checked.append(dict(kernel="block_histograms",
+                                    keys=a[0].shape[0], n_bins=n_bins,
+                                    block=block, max_abs_err=0))
+                log(f"block_histograms calibration radix Exchange: keys "
+                    f"{a[0].shape[0]}, {n_bins} bins, block {block}: equal")
+            del aggs, hists
+            with open(path) as f:
+                fitted_raw = json.load(f)
+            unit = check_profile(fitted_raw)
+            log(f"calibration: per-pass slope {fitted_raw['pass_time_us']} "
+                f"us over a largest quartile spread of {unit['spread_us']} "
+                f"us, median slope between widths "
+                f"{unit['median_pair_slope_us']} us, attempts at the "
+                f"baseline {fitted_raw['base_attempts']}; "
+                "constants " + json.dumps(
+                    {k: fitted_raw[k] for k in FITTED}))
+            fitted = planner.load_cost_profile(path)
+            planner.set_cost_profile(None)
+            # the telemetry loop on a copy: the SF1 runs take the fit
+            refreshed = os.path.join(tmp, "refreshed.json")
+            shutil.copyfile(path, refreshed)
+            if calib.main(["--refresh", refreshed]) != 0:
+                raise AssertionError("calibrate_costs_torch --refresh failed")
+            with open(refreshed) as f:
+                refreshed_raw = json.load(f)
+            drifted = {k: [fitted_raw.get(k), v]
+                       for k, v in refreshed_raw.items()
+                       if k != "refreshed_from" and fitted_raw.get(k) != v}
+            log(f"calibration: refresh drifted {drifted or 'no entry'}")
+        report.update(profile=fitted_raw, refresh_drifted=drifted,
+                      fit_s=round(fit_s, 3), launches=launches,
+                      pass_unit=unit, kernel_checks=checked)
+        report.update(sf1_under_profile(data, plain, oracle, fitted))
+    finally:
+        planner.set_cost_profile(None)
+    if planner.current_cost_profile() != planner.CostProfile():
+        raise AssertionError("the builtin cost profile is not back")
+    torch.cuda.synchronize()
+    report["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    report["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    peak_line("calibration phase")
+    log(f"calibration phase: {report['phase_s']} s")
+    return launches, report
+
+
+def sf1_under_profile(data, plain, oracle, fitted):
+    """The 7 queries under ``cost`` on one device and on 8 shards x the
+    four policies, lowered, run and timed warm under the builtin profile
+    and under ``fitted``: the decisions that differ printed, the fitted
+    runs held to the gates, bit-equal to the builtin's where the physical
+    plan is unchanged."""
+    import dataclasses
+    import torch
+    from repro_torch.analytics import planner
+    from repro_torch.analytics.tpch import LOGICAL_QUERIES, run_query
+    from repro_torch.core.config import PlacementPolicy
+
+    ctxs = {"cost/1": planner.ExecutionContext(executor="cost")}
+    for pol in POLICIES:
+        ctxs[f"cost/{N_SHARDS}/{pol}"] = planner.ExecutionContext(
+            n_shards=N_SHARDS, policy=PlacementPolicy[pol])
+    tables = data.tables
+    decided, phys, out, warm = {}, {}, {}, {}
+    for tag, profile in (("builtin", None), ("fitted", fitted)):
+        planner.set_cost_profile(profile)
+        t0 = time.perf_counter()
+        for c, ctx in ctxs.items():
+            for q, plan in LOGICAL_QUERIES.items():
+                decided[tag, c, q] = {
+                    (d.node, d.detail, d.choice)
+                    for d in planner.explain(plan, tables, ctx)}
+                phys[tag, c, q] = planner.compile_plan(plan, tables,
+                                                       ctx).physical
+                out[tag, c, q] = run_query(q, data, context=ctx)
+        torch.cuda.synchronize()
+        log(f"calibration: 7 queries x {len(ctxs)} contexts under the "
+            f"{tag} profile in {time.perf_counter() - t0:.3f} s")
+        for c, ctx in ctxs.items():
+            for q in LOGICAL_QUERIES:
+                warm[tag, c, q] = cuda_ms(
+                    lambda q=q, ctx=ctx: run_query(q, data, context=ctx),
+                    reps=WARM_REPS, warmup=0)
+    lines, flips, same_plan = [], [], 0
+    worst = [0.0, ""]
+    planner.set_cost_profile(fitted)
+    for c, ctx in ctxs.items():
+        for q in LOGICAL_QUERIES:
+            label = f"fitted/{c}/{q}"
+            old, new = decided["builtin", c, q], decided["fitted", c, q]
+            for sign, a, b in (("-", old, new), ("+", new, old)):
+                lines += [f"{c} {q} {sign} {node}[{detail}] -> {choice}"
+                          for node, detail, choice in sorted(a - b)]
+            # a flip: the same node and inputs, another choice
+            was = {(n, d): ch for n, d, ch in old}
+            for n, d, ch in sorted(new):
+                if was.get((n, d), ch) != ch:
+                    flips.append(f"{c} {q} {n}[{d}]: {was[n, d]} -> {ch}")
+            got = out["fitted", c, q]
+            if "_overflow" in got and int(got["_overflow"]) != 0:
+                log(f"overflow stated: {q} under {c}, fitted profile: "
+                    f"{int(got['_overflow'])} records; re-run at "
+                    f"{RETRY_CAPACITY}")
+                got = run_query(q, data, context=dataclasses.replace(
+                    ctx, capacity_factor=RETRY_CAPACITY))
+                if int(got["_overflow"]) != 0:
+                    raise AssertionError(f"{label}: overflow at capacity "
+                                         f"{RETRY_CAPACITY}")
+            check_against_plain(label, got, plain[q], oracle, 1e-5, worst)
+            if phys["builtin", c, q] == phys["fitted", c, q]:
+                same_plan += 1
+                if not same_bits(out["fitted", c, q],
+                                 out["builtin", c, q]):
+                    raise AssertionError(f"{label}: the plan is unchanged "
+                                         "but the bits differ from the "
+                                         "builtin profile's")
+    planner.set_cost_profile(None)
+    for line in lines:
+        log(f"calibration decision: {line}")
+    for line in flips:
+        log(f"calibration flip: {line}")
+    pairs = {c: {q: [warm["builtin", c, q], warm["fitted", c, q]]
+                 for q in LOGICAL_QUERIES} for c in ctxs}
+    for c, per_q in pairs.items():
+        log(f"calibration warm ms [builtin, fitted] [{c}]: "
+            f"{json.dumps(per_q)}")
+    log(f"calibration: {len(ctxs) * len(LOGICAL_QUERIES)} query runs under "
+        f"the fitted profile hold the gates (largest deviation from "
+        f"float64 {worst[0]!r}, {worst[1]}); {same_plan} with an unchanged "
+        "plan are bit-equal to the builtin profile's; "
+        f"{len(lines)} decision lines differ, {len(flips)} of them "
+        "choices flipped on the same inputs")
+    return dict(flips=flips, decision_lines_differ=len(lines),
+                warm_ms=pairs, unchanged_plans=same_plan)
 
 
 # ---------------------------------------------------------------------------
@@ -2431,6 +2742,8 @@ def main() -> int:
         *svc_agg, f"one served q1 morsel of {SERVE_MORSEL_ROWS} rows, SF1"),
         max_abs_err=svc_agg_err)
     log(f"hash_aggregate service morsel timing {json.dumps(svc_agg_time)}")
+    calib_launches, calib_report = calibration_phase(data, results["plain"],
+                                                     oracle)
     del data, results
     wd = WData(dev)
     w_phase(wd, dev)
@@ -2452,6 +2765,7 @@ def main() -> int:
              launches_telemetry=tele_launches["hash_aggregate_multi"],
              launches_w_one_device=w_launches["hash_aggregate_multi"],
              launches_service=svc_launches["hash_aggregate_multi"],
+             launches_calibration=calib_launches["hash_aggregate_multi"],
              service_morsel_shape=svc_agg_time,
              other_shapes=[agg_times["q1"], dist_agg_time, w_agg_time]),
         dict(name="join_probe", route="cuda",
@@ -2468,9 +2782,11 @@ def main() -> int:
              launches=dist_launches["block_histograms"], max_abs_err=0.0,
              launches_telemetry=tele_launches["block_histograms"],
              launches_service=svc_launches["block_histograms"],
+             launches_calibration=calib_launches["block_histograms"],
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
+    print("calibration " + json.dumps(calib_report))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,9 @@ from repro_torch.kernels.join_probe import join_probe
 
 # Largest key domain aggregated with full-width per-chunk tables; beyond
 # it the kernel path range-partitions so each partition table stays narrow.
+# The value is the reference's (its TPU's VMEM model); the H100's is
+# fitted by scripts/calibrate_costs_torch.py --sweep-groups and carried
+# by a loaded profile's dense_group_limit.
 DENSE_GROUP_LIMIT = 4096
 # Longest segment up to which ``segment_sum`` reduces each segment serially
 # on one thread (beyond it, a block's tree per segment and column).
@@ -117,6 +120,25 @@ def concat_slices(parts):
     return cols, mask
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a 2-D ``x``, bit for bit. PyTorch's CUDA gather
+    launches one tiny block per row when a row is a multiple of 16 bytes
+    (4 or 8 f32 columns), so such rows gather far slower than a row of 3
+    or 6 columns (``chip_smoke.py``'s calibration times the segment sums
+    at each width); they are gathered here as the 16-byte elements of a
+    flat view instead, which takes the ordinary element-wise path."""
+    row = x.shape[1] * x.element_size()
+    if (row == 0 or row % 16 or not x.is_contiguous()
+            or x.storage_offset() * x.element_size() % 16):
+        return x[idx]
+    k = row // 16
+    if k > 1:
+        idx = (idx.unsqueeze(1) * k
+               + torch.arange(k, device=idx.device)).reshape(-1)
+    flat = x.view(torch.complex128).reshape(-1)     # (N * k,) 16-byte rows
+    return flat[idx].view(x.dtype).reshape(-1, x.shape[1])
+
+
 def segment_sum(data: torch.Tensor, ids: torch.Tensor,
                 n: int) -> torch.Tensor:
     """``jax.ops.segment_sum``: sums rows of ``data`` by ``ids`` into n
@@ -142,7 +164,7 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
     offsets = torch.searchsorted(
         sorted_ids, torch.arange(n + 2, dtype=itype, device=ids.device))
     width = math.prod(data.shape[1:])
-    rows = data[order].reshape(data.shape[0], width)
+    rows = take_rows(data.reshape(data.shape[0], width), order)
     if (data.shape[0] <= SERIAL_SEGMENT_ROWS
             or int(torch.diff(offsets).max()) <= SERIAL_SEGMENT_ROWS):
         out = torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
@@ -477,7 +499,7 @@ def _fused_partitioned(keys: torch.Tensor, vals: torch.Tensor, n_groups: int,
     bins = max(128, -(-range_size // 128) * 128)
     part = torch.clamp(keys // range_size, 0, n_partitions - 1)
     order = torch.argsort(part, stable=True)
-    sk, sv = keys[order], vals[order]
+    sk, sv = keys[order], take_rows(vals, order)
     counts_p = torch.bincount(part, minlength=n_partitions)
     starts = torch.cumsum(counts_p, 0) - counts_p
     pad_t = int(max(block,

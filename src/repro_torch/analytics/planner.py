@@ -150,8 +150,9 @@ class ExecutionContext:
 
 
 # ---------------------------------------------------------------------------
-# cost model (constants as in the reference; fitted for the TPU there, so
-# an H100 profile is still to be fitted: load_cost_profile installs one)
+# cost model (the constants are the reference's, set for its TPU;
+# scripts/calibrate_costs_torch.py fits the H100's into a profile that
+# load_cost_profile installs)
 # ---------------------------------------------------------------------------
 FUSED_FIXED = 1.2
 FUSED_PER_COL = 0.45

@@ -231,6 +231,30 @@ def test_segment_sum_matches_jax_on_stacked_columns(shape):
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("dtype,width,offset", [
+    (torch.float32, 1, 0), (torch.float32, 3, 0), (torch.float32, 4, 0),
+    (torch.float32, 8, 0), (torch.float32, 12, 0), (torch.int64, 2, 0),
+    (torch.float64, 6, 0), (torch.float32, 4, 1), (torch.float32, 4, 4)])
+def test_take_rows_is_row_indexing_bit_for_bit(dtype, width, offset):
+    """16-byte rows go through the flat view, others through indexing;
+    a view whose start is not 16-byte aligned falls back to indexing.
+    Every bit is kept (NaN payloads and -0.0 included)."""
+    rng = np.random.RandomState(width + offset)
+    n = 1000
+    flat = torch.from_numpy(rng.randint(-(1 << 31), (1 << 31) - 1,
+                                        (n + 1) * width * 2,
+                                        dtype=np.int64).astype(np.int32))
+    x = flat.view(torch.float32) if dtype == torch.float32 else \
+        flat.view(dtype)
+    x = x[offset:offset + n * width].reshape(n, width)
+    idx = torch.from_numpy(rng.randint(0, n, 777))
+    got = TC.take_rows(x, idx)
+    want = x[idx]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert TC.take_rows(x, idx[:0]).shape == (0, width)
+
+
 def test_top_k_breaks_ties_by_lowest_index_like_lax():
     x = np.array([3, 7, 7, 1, 7, 3, 9, 3, 0, 7], np.float32)
     for k in (1, 3, 5, 8, 10):

@@ -13,7 +13,7 @@ import torch
 from _agg_order import kernel_order_sums, q18_like
 from _join_cases import CASES, case
 from _scan_order import kernel_order_scan
-from repro_torch.analytics.columnar import segment_sum
+from repro_torch.analytics.columnar import segment_sum, take_rows
 from repro_torch.kernels import common
 from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
 from repro_torch.kernels.join_probe import join_probe
@@ -323,6 +323,15 @@ def test_cuda_segment_sum_is_bit_stable(dev, n, groups, width):
                        ).index_add_(0, ids, vals.double())
     np.testing.assert_allclose(a.double().cpu().numpy(),
                                want.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 4, 6, 8])
+def test_cuda_take_rows_is_row_indexing(dev, width):
+    gen = torch.Generator(device=dev).manual_seed(width)
+    x = torch.rand((1_000_000, width), device=dev, generator=gen)
+    idx = torch.randint(0, x.shape[0], (999_999,), device=dev, generator=gen)
+    assert torch.equal(take_rows(x, idx), x[idx])
 
 
 # The attention and scan kernels against their plain versions: both sum
@@ -757,3 +766,75 @@ def test_cuda_straggler_of_device_work_is_quarantined(dev, monkeypatch):
     assert 0.08 not in slept                     # the delay was device work
     for rid in rids:
         _same_bits(results[rid].value, want, "q6")
+
+
+# ---------------------------------------------------------------------------
+# the cost-model calibration (analytics/dist_join_bench.py,
+# scripts/calibrate_costs_torch.py)
+# ---------------------------------------------------------------------------
+def _plan_fields(res):
+    """A dist_join_bench result without its timings."""
+    if isinstance(res, dict):
+        return {k: _plan_fields(v) for k, v in res.items()
+                if not isinstance(v, float)}
+    return res
+
+
+@pytest.mark.cuda
+def test_cuda_dist_join_bench_gives_the_cpus_plan_fields(dev):
+    from repro_torch.analytics import dist_join_bench as DJB
+    calls = {"sweep": (8192, [256, 4096], 4),
+             "exchange": (1024, [1024, 8192], 4),
+             "pushdown": (4096, 64, 4), "chain": (4096, 256, 4),
+             "topk": (4096, 512, 8, 4)}
+    for name, args in calls.items():
+        fn = getattr(DJB, name)
+        got, want = fn(*args, device=dev), fn(*args, device="cpu")
+        assert _plan_fields(got) == _plan_fields(want), name
+        times = [v for row in got.values()
+                 for v in (row.values() if isinstance(row, dict) else [row])
+                 if isinstance(v, float)]
+        assert times and all(t > 0 for t in times), name
+
+
+@pytest.mark.cuda
+def test_cuda_calibration_writes_a_profile_that_loads(dev, tmp_path):
+    import importlib.util
+    import json
+    import math
+    import os
+    from repro_torch.analytics import planner
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "calibrate_costs_torch",
+        os.path.join(repo, "scripts", "calibrate_costs_torch.py"))
+    calib = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(calib)
+    path = str(tmp_path / "profile.json")
+    common.reset_launches()
+    assert calib.main([
+        "--rows", str(1 << 16), "--cols", "1", "2", "4", "--sweep-groups",
+        "--groups-sweep", "512", "2048", "--dist", "--dist-devices", "4",
+        "--dist-probe", str(1 << 14), "--dist-builds", "1024", "4096",
+        "--exchange", "--exchange-build", "4096", "--exchange-probes",
+        str(1 << 14), str(1 << 16), "--morsel", "--morsel-probes", "4096",
+        "16384", "--out", path]) == 0
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["hash_aggregate_multi"] > 0
+    assert common.LAUNCHES["block_histograms"] > 0
+    assert planner.current_cost_profile() == planner.CostProfile()
+    with open(path) as f:
+        raw = json.load(f)
+    assert raw["backend"] == "cuda" and raw["card"]
+    try:
+        prof = planner.load_cost_profile(path)
+        for field in ("fused_fixed", "fused_per_col", "sort_pass_factor",
+                      "dist_route_factor", "radix_route_factor",
+                      "dense_group_limit", "morsel_split_rows"):
+            v = getattr(prof, field)
+            assert math.isfinite(v) and v > 0, field
+            assert v == raw[field], field
+        assert prof.source == "cuda"
+    finally:
+        planner.set_cost_profile(None)
+    assert planner.current_cost_profile() == planner.CostProfile()

@@ -194,15 +194,20 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.rwkv6_scan, repro_torch.models.rwkv6, "
             "repro_torch.analytics.aggregate, repro_torch.analytics.join, "
             "repro_torch.analytics.telemetry, repro_torch.analytics.tracing, "
-            "repro_torch.analytics.service\n"
+            "repro_torch.analytics.service, "
+            "repro_torch.analytics.dist_join_bench\n"
             "import runpy\n"
+            "runpy.run_path(%r)\n"
+            "runpy.run_path(%r)\n"
             "runpy.run_path(%r)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))\n"
             "print(bad)\n"
             "assert not bad, bad\n"
-            % os.path.join(REPO, "scripts", "trace_gate_torch.py"))
+            % (os.path.join(REPO, "scripts", "trace_gate_torch.py"),
+               os.path.join(REPO, "scripts", "calibrate_costs_torch.py"),
+               os.path.join(REPO, "scripts", "calib_noise_torch.py")))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
