@@ -14,6 +14,16 @@ points:
     ``repro_torch.analytics.tpch.run_query`` under the kernel, plain and
     cost-based contexts, checked against each other and against a float64
     evaluation;
+  * the paper's axes: the 7 hand-written queries (``tpch.QUERIES``) at
+    SF1 under ``xla`` and ``kernel``, held to the float64 evaluation and
+    to ``run_query`` under the same executor, warm ms of both;
+    ``hash_aggregate`` (the one-column wrapper) at q18's per-order call,
+    bit for bit the one-column ``hash_aggregate_multi`` and within
+    tolerance of its plain version; the host's NUMA nodes, distances and
+    the card's node from sysfs, cross-checked with ``nvidia-smi topo
+    -m`` (a machine that exposes neither is reported so); and Fig 2's
+    allocator sweep (``memory.microbench.sweep``, 2000 ops a stream, 1-32
+    streams), BUMP contending more than SLAB and ARENA at 8 streams;
   * the distributed path: the same queries at SF1 on a virtual mesh of 8
     shards under the four placement policies x {argsort, radix, cost}
     Exchange contexts and one composed kernel context, checked against the
@@ -649,7 +659,8 @@ def check_results(results, oracle):
         if r > SUM_RTOL[ctx]:
             raise AssertionError(f"{label}: off float64 by {r!r} relative, "
                                  f"over {SUM_RTOL[ctx]}")
-    log("results: kernel and cost contexts give the plain path's integers; "
+    others = " and ".join(c for c in results if c != "plain")
+    log(f"results: {others} give the plain path's integers; "
         f"sums agree with float64 within {SUM_RTOL}")
 
 
@@ -677,6 +688,187 @@ def main_path(data):
                            reps=WARM_REPS, warmup=0)
                 for q in LOGICAL_QUERIES} for c, ctx in ctxs.items()}
     return results, launches, warm
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the paper's axes: the hand-written queries, the one-column
+# aggregate, the host's NUMA topology and the allocator sweep (Fig 2)
+# ---------------------------------------------------------------------------
+# the reference's executor-parity tolerance (tests/test_tpch_executors.py)
+PARITY_ATOL, PARITY_RTOL = 1e-3, 1e-4
+FIG2_OPS_PER_STREAM = 2000       # benchmarks/fig2_allocator_microbench.py
+
+
+def imperative_queries(data, oracle):
+    """The 7 hand-written queries under ``xla`` and ``kernel``: held to
+    the float64 evaluation with check_results' gates, and to run_query
+    under the same executor with the executor-parity tolerance (integers,
+    counts, q3's keys and the overflow equal). Returns the kernel run's
+    launches and warm ms of both paths."""
+    import numpy as np
+    import torch
+    from repro_torch.analytics import planner
+    from repro_torch.analytics.tpch import QUERIES, run_query
+    from repro_torch.kernels import common
+
+    t0 = time.perf_counter()
+    xla = {q: fn(data.tables, executor="xla") for q, fn in QUERIES.items()}
+    torch.cuda.synchronize()
+    common.reset_launches()                 # just before the kernel run
+    kernel = {q: fn(data.tables, executor="kernel")
+              for q, fn in QUERIES.items()}
+    torch.cuda.synchronize()
+    launches = dict(common.LAUNCHES)        # just after it
+    log(f"imperative queries: 7 x 2 executors in "
+        f"{time.perf_counter() - t0:.3f} s (first runs), kernel run "
+        f"launches {launches}")
+    if launches["hash_aggregate_multi"] <= 0:
+        raise AssertionError("the imperative kernel run never launched "
+                             "hash_aggregate_multi")
+    results = {"plain": xla, "kernel": kernel}
+    check_results(results, oracle)
+    warm = {}
+    for executor, res in (("xla", xla), ("kernel", kernel)):
+        ctx = planner.ExecutionContext(executor=executor)
+        for q, fn in QUERIES.items():
+            want = run_query(q, data, context=ctx)
+            got = res[q]
+            if set(got) != set(want):
+                raise AssertionError(f"imperative {q}/{executor}: keys "
+                                     f"{sorted(got)} != {sorted(want)}")
+            for k, w in want.items():
+                g = got[k]
+                if k in EXACT_KEYS or not w.is_floating_point():
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"imperative {q}/{executor}/{k}"
+                                             ": differs from run_query")
+                else:
+                    np.testing.assert_allclose(
+                        g.cpu().numpy(), w.cpu().numpy(), atol=PARITY_ATOL,
+                        rtol=PARITY_RTOL,
+                        err_msg=f"imperative {q}/{executor}/{k}")
+            warm[f"{q}/{executor}"] = dict(
+                imperative=cuda_ms(lambda fn=fn, e=executor: fn(
+                    data.tables, executor=e), reps=WARM_REPS),
+                run_query=cuda_ms(lambda q=q, ctx=ctx: run_query(
+                    q, data, context=ctx), reps=WARM_REPS))
+    log("imperative queries equal run_query under the same executor "
+        f"(atol {PARITY_ATOL}, rtol {PARITY_RTOL}; integers exact)")
+    return launches, warm
+
+
+def check_wrapper(args, kw):
+    """``hash_aggregate`` at q18's per-order call (its ids and the
+    quantity column): bit for bit the one-column ``hash_aggregate_multi``,
+    and within check_hash_aggregate's tolerance of the plain version;
+    then timed there beside its bound, plain version and library call."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.hash_aggregate import (hash_aggregate,
+                                                    hash_aggregate_multi)
+    from repro_torch.kernels.hash_aggregate.ref import \
+        hash_aggregate_multi_ref
+    ids, n_bins = args[0], kw["n_bins"]
+    col = args[1][..., -1].contiguous()
+    before = common.LAUNCHES["hash_aggregate_multi"]
+    got = hash_aggregate(ids, col, n_bins=n_bins)
+    torch.cuda.synchronize()
+    if common.LAUNCHES["hash_aggregate_multi"] != before + 1:
+        raise AssertionError("hash_aggregate did not launch the kernel once")
+    multi = hash_aggregate_multi(ids, col[..., None], n_bins=n_bins)[..., 0]
+    if not torch.equal(got.view(torch.int32), multi.view(torch.int32)):
+        raise AssertionError("hash_aggregate differs from the one-column "
+                             "hash_aggregate_multi")
+    plain = hash_aggregate_multi_ref(ids, col[..., None], n_bins=n_bins)
+    scale = hash_aggregate_multi_ref(ids, col.abs()[..., None],
+                                     n_bins=n_bins)
+    err = (got - plain[..., 0]).abs()
+    bad = err > 1e-4 * scale[..., 0] + 1e-6
+    if bool(bad.any()):
+        raise AssertionError(f"hash_aggregate: {int(bad.sum())} sums off "
+                             f"the plain version, max err {float(err.max())}")
+    log(f"hash_aggregate (the wrapper) at q18's per-order call: ids "
+        f"{tuple(ids.shape)} bins={n_bins} bit-equal to hash_aggregate_multi"
+        f"(...)[..., 0], max_abs_err={float(err.max())} from the plain "
+        "version")
+    timing = dict(time_hash_aggregate(
+        (ids, col[..., None]), dict(n_bins=n_bins), "hash_aggregate (the "
+        "wrapper) at q18's ids and quantity column, SF1"),
+        max_abs_err=float(err.max()))
+    log(f"hash_aggregate wrapper timing {json.dumps(timing)}")
+    return timing
+
+
+def host_topology():
+    """The host's NUMA nodes, distances and relative latencies from
+    sysfs, the card's bus id and node, cross-checked with nvidia-smi topo
+    -m where both name a node. A machine that exposes no NUMA directory
+    (a container that hides it) is reported so, with what it does
+    expose: nothing is assumed in its place."""
+    import torch
+    from repro_torch.core import topology
+    props = torch.cuda.get_device_properties(0)
+    out = dict(torch_pci=dict(domain=props.pci_domain_id,
+                              bus=props.pci_bus_id,
+                              device=props.pci_device_id),
+               nvidia_smi_bus_id=topology.nvidia_smi_bus_id(0))
+    with open("/proc/self/status") as f:
+        out["mems_allowed_list"] = next(
+            (ln.split(":", 1)[1].strip() for ln in f
+             if ln.startswith("Mems_allowed_list")), None)
+    out["cpus"] = sorted(os.sched_getaffinity(0))
+    smi = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                         text=True, timeout=60)
+    row = (topology.parse_nvidia_topo(smi.stdout) if smi.returncode == 0
+           else None)
+    out["nvidia_smi_topo"] = row or (smi.stdout + smi.stderr).strip()
+    node_dir = os.path.join("/sys", *topology.NODE_DIR)
+    if not os.path.isdir(node_dir):
+        out["numa"] = f"not visible: this machine has no {node_dir}"
+        log(f"host topology {json.dumps(out)}")
+        return out
+    out["numa"] = topology.read_host_topology(
+        gpu_bus_id=out["nvidia_smi_bus_id"]).report()
+    node, affinity = out["numa"]["gpu_node"], (row or {}).get("NUMA Affinity")
+    if affinity and affinity.isdigit() and node is not None and node >= 0 \
+            and int(affinity) != node:
+        raise AssertionError(f"the card's node: sysfs {node}, nvidia-smi "
+                             f"topo -m {affinity}")
+    log(f"host topology {json.dumps(out)}")
+    return out
+
+
+def allocator_sweep():
+    """``microbench.sweep`` at Fig 2's size; BUMP (one lock) must contend
+    more than SLAB and ARENA at 8 streams, as the reference's test holds."""
+    from repro_torch.memory.microbench import sweep
+    rows = sweep(ops_per_stream=FIG2_OPS_PER_STREAM)
+    for r in rows:
+        log(f"fig2 {r.kind} streams={r.n_streams} ops/s={r.ops_per_sec!r} "
+            f"contention_rate={r.contention_rate!r} "
+            f"overhead_ratio={r.overhead_ratio!r}")
+    at8 = {r.kind: r.contention_rate for r in rows if r.n_streams == 8}
+    if not (at8["bump"] > at8["slab"] and at8["bump"] > at8["arena"]):
+        raise AssertionError(f"contention at 8 streams out of order: {at8}")
+    return [dict(kind=r.kind, n_streams=r.n_streams,
+                 ops_per_sec=r.ops_per_sec, contention_rate=r.contention_rate,
+                 overhead_ratio=r.overhead_ratio) for r in rows]
+
+
+def paper_axes_phase(data, oracle, q18_call, card):
+    """Phase 4b. Returns the imperative kernel run's launches and the
+    wrapper's timing record."""
+    t0 = time.perf_counter()
+    launches, warm = imperative_queries(data, oracle)
+    for key, ms in warm.items():
+        log(f"imperative warm ms [{card}] {key}: {json.dumps(ms)}")
+    wrapper = check_wrapper(*q18_call)
+    host = host_topology()
+    fig2 = allocator_sweep()
+    seconds = time.perf_counter() - t0
+    log("paper axes " + json.dumps(dict(card=card, seconds=seconds,
+                                        host=host, fig2=fig2)))
+    return launches, wrapper
 
 
 # ---------------------------------------------------------------------------
@@ -2717,6 +2909,9 @@ def main() -> int:
         f"{q} kernel {warm['kernel'][q]!r} plain {warm['plain'][q]!r} "
         f"cost {warm['cost'][q]!r}" for q in ("q3", "q5")))
     peak_line("single-device main path")
+    imp_launches, wrapper_time = paper_axes_phase(data, oracle, aggs["q18"],
+                                                  card)
+    peak_line("paper axes")
 
     radix_call = radix_phase(data, dev)
     radix_time = time_block_histograms(
@@ -2766,7 +2961,8 @@ def main() -> int:
              launches_w_one_device=w_launches["hash_aggregate_multi"],
              launches_service=svc_launches["hash_aggregate_multi"],
              launches_calibration=calib_launches["hash_aggregate_multi"],
-             service_morsel_shape=svc_agg_time,
+             launches_imperative=imp_launches["hash_aggregate_multi"],
+             service_morsel_shape=svc_agg_time, wrapper_shape=wrapper_time,
              other_shapes=[agg_times["q1"], dist_agg_time, w_agg_time]),
         dict(name="join_probe", route="cuda",
              source="src/repro_torch/kernels/csrc/join_probe.cu",

@@ -1,5 +1,6 @@
-"""TPC-H-style workload on PyTorch: generated tables and the seven logical
-query plans of ``repro.analytics.tpch``, run through the port's planner.
+"""TPC-H-style workload on PyTorch: generated tables, the seven logical
+query plans of ``repro.analytics.tpch`` run through the port's planner,
+and the same seven queries written by hand on the columnar operators.
 
 Tables: lineitem 6000*SF rows, orders 1500*SF, customer 150*SF, supplier
 10*SF, nation 25, region 5. Dates are day-number ints; strings are
@@ -7,6 +8,10 @@ dictionary-encoded ints. ``generate`` makes the same numpy arrays as the
 reference (the same ``RandomState`` call sequence) and puts them on a
 device: a CUDA device unless the caller asks for another. Without a GPU
 the default raises; it never falls back to the CPU.
+
+The hand-written queries (``q1`` ... ``qq``, ``QUERIES``) are a second,
+independent path to the same results: the planner's plans are held
+against them. They run where their tables lie.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.analytics import planner
+from repro_torch.analytics.columnar import Table, group_aggregate, pkfk_join
 from repro_torch.analytics.plan import LogicalPlan, TableRows, col, scan
 from repro_torch.core.config import resolve_device
 
@@ -93,6 +99,156 @@ def generate(scale: float = 0.01, seed: int = 0,
     generating)."""
     dev = resolve_device(device)
     return from_numpy(generate_numpy(scale, seed), scale, dev)
+
+
+def _t(tables: Tables, name: str) -> Table:
+    return Table(dict(tables[name]))
+
+
+# ---------------------------------------------------------------------------
+# hand-written queries (each returns a dict of result tensors); the float
+# expressions keep the reference's operation order
+# ---------------------------------------------------------------------------
+def q1(tables: Tables, *, executor: str = "xla",
+       cutoff: int = DATE1 - 90) -> Dict[str, torch.Tensor]:
+    """Pricing summary: filter shipdate, group by (returnflag, linestatus).
+
+    Seven aggregates over one key: under ``kernel`` all of them are one
+    sweep of lineitem through the fused aggregate."""
+    li = _t(tables, "lineitem")
+    li = li.filter(li.col("l_shipdate") <= cutoff)
+    g = li.col("l_returnflag") * 2 + li.col("l_linestatus")
+    li = li.with_columns(
+        _g=g,
+        _disc_price=li.col("l_extendedprice") * (1 - li.col("l_discount")),
+    )
+    li = li.with_columns(_charge=li.col("_disc_price") * (1 + li.col("l_tax")))
+    return group_aggregate(li, "_g", 6, {
+        "sum_qty": ("sum", "l_quantity"),
+        "sum_base_price": ("sum", "l_extendedprice"),
+        "sum_disc_price": ("sum", "_disc_price"),
+        "sum_charge": ("sum", "_charge"),
+        "avg_qty": ("avg", "l_quantity"),
+        "avg_price": ("avg", "l_extendedprice"),
+        "count_order": ("count", "l_quantity"),
+    }, executor=executor)
+
+
+def q3(tables: Tables, *, executor: str = "xla", segment: int = 1,
+       date: int = DATE1 // 2) -> Dict[str, torch.Tensor]:
+    """Shipping priority: cust ⋈ orders ⋈ lineitem, top-10 revenue orders
+    (ties to the lowest order key, as ``lax.top_k``)."""
+    cust = _t(tables, "customer")
+    cust = cust.filter(cust.col("c_mktsegment") == segment)
+    orders = _t(tables, "orders")
+    orders = orders.filter(orders.col("o_orderdate") < date)
+    o = pkfk_join(orders, cust, "o_custkey", "c_custkey", {})
+    li = _t(tables, "lineitem")
+    li = li.filter(li.col("l_shipdate") > date)
+    li = pkfk_join(li, o, "l_orderkey", "o_orderkey", {})
+    li = li.with_columns(
+        _rev=li.col("l_extendedprice") * (1 - li.col("l_discount")))
+    n_ord = tables["orders"]["o_orderkey"].shape[0]
+    agg = group_aggregate(li, "l_orderkey", n_ord,
+                          {"revenue": ("sum", "_rev")}, executor=executor)
+    top_rev, top_keys = planner.top_k(agg["revenue"], 10)
+    return {"revenue": top_rev, "o_orderkey": top_keys,
+            "_overflow": agg["_overflow"]}
+
+
+def q5(tables: Tables, *, executor: str = "xla", region: int = 2,
+       date_lo: int = 0, date_hi: int = 365) -> Dict[str, torch.Tensor]:
+    """Local supplier volume: 5-way join, group by nation."""
+    nation = _t(tables, "nation")
+    nation = nation.filter(nation.col("n_regionkey") == region)
+    cust = pkfk_join(_t(tables, "customer"), nation, "c_nationkey",
+                     "n_nationkey", {})
+    orders = _t(tables, "orders")
+    orders = orders.filter((orders.col("o_orderdate") >= date_lo)
+                           & (orders.col("o_orderdate") < date_hi))
+    o = pkfk_join(orders, cust, "o_custkey", "c_custkey",
+                  {"_c_nation": "c_nationkey"})
+    li = pkfk_join(_t(tables, "lineitem"), o, "l_orderkey", "o_orderkey",
+                   {"_c_nation": "_c_nation"})
+    li = pkfk_join(li, _t(tables, "supplier"), "l_suppkey", "s_suppkey",
+                   {"_s_nation": "s_nationkey"})
+    # local: supplier nation == customer nation
+    li = li.filter(li.col("_s_nation") == li.col("_c_nation"))
+    li = li.with_columns(
+        _rev=li.col("l_extendedprice") * (1 - li.col("l_discount")))
+    return group_aggregate(li, "_s_nation", N_NATION,
+                           {"revenue": ("sum", "_rev")}, executor=executor)
+
+
+def q6(tables: Tables, *, executor: str = "xla", date_lo: int = 0,
+       date_hi: int = 365, disc: float = 0.06,
+       qty: float = 24.0) -> Dict[str, torch.Tensor]:
+    """Forecast revenue change: one masked reduction, the same under
+    every executor (the knob is taken for a uniform interface)."""
+    del executor
+    li = _t(tables, "lineitem")
+    pred = ((li.col("l_shipdate") >= date_lo) & (li.col("l_shipdate") < date_hi)
+            & (torch.abs(li.col("l_discount") - disc) <= 0.011)
+            & (li.col("l_quantity") < qty))
+    li = li.filter(pred)
+    w = li.weights()
+    rev = (li.col("l_extendedprice") * li.col("l_discount") * w).sum()
+    return {"revenue": rev[None]}
+
+
+def q18(tables: Tables, *, executor: str = "xla",
+        qty_threshold: float = 212.0) -> Dict[str, torch.Tensor]:
+    """Large volume customer: big group-by on orderkey, HAVING, re-join."""
+    li = _t(tables, "lineitem")
+    n_ord = tables["orders"]["o_orderkey"].shape[0]
+    per_order = group_aggregate(li, "l_orderkey", n_ord,
+                                {"qty": ("sum", "l_quantity")},
+                                executor=executor)
+    big = per_order["qty"] > qty_threshold
+    orders = _t(tables, "orders").with_columns(_qty=per_order["qty"])
+    # HAVING replaces the orders' selection (it has none of its own)
+    orders = Table(orders.columns, big.to(torch.float32), orders.index_cache)
+    o = pkfk_join(orders, _t(tables, "customer"), "o_custkey", "c_custkey",
+                  {"_nat": "c_nationkey"})
+    n_cust = tables["customer"]["c_custkey"].shape[0]
+    out = group_aggregate(o, "o_custkey", n_cust, {"qty": ("sum", "_qty")},
+                          executor=executor)
+    # overflow in EITHER pass makes the result incomplete: never silent
+    out["_overflow"] = out["_overflow"] + per_order["_overflow"]
+    return out
+
+
+def qm(tables: Tables, *, executor: str = "xla",
+       cutoff: int = DATE1 - 90) -> Dict[str, torch.Tensor]:
+    """Order-statistic pricing summary: per-returnflag MEDIAN quantity and
+    price beside distributive companions (medians stay on the sort-based
+    selection under every executor)."""
+    li = _t(tables, "lineitem")
+    li = li.filter(li.col("l_shipdate") <= cutoff)
+    return group_aggregate(li, "l_returnflag", 3, {
+        "med_qty": ("median", "l_quantity"),
+        "med_price": ("median", "l_extendedprice"),
+        "avg_qty": ("avg", "l_quantity"),
+        "count_order": ("count", "l_quantity"),
+    }, executor=executor)
+
+
+def qq(tables: Tables, *, executor: str = "xla",
+       cutoff: int = DATE1 - 90) -> Dict[str, torch.Tensor]:
+    """Quantile pricing summary: per-returnflag p90 price and p25 quantity
+    beside their median and count."""
+    li = _t(tables, "lineitem")
+    li = li.filter(li.col("l_shipdate") <= cutoff)
+    return group_aggregate(li, "l_returnflag", 3, {
+        "p90_price": ("quantile:0.9", "l_extendedprice"),
+        "p25_qty": ("quantile:0.25", "l_quantity"),
+        "med_price": ("median", "l_extendedprice"),
+        "count_order": ("count", "l_quantity"),
+    }, executor=executor)
+
+
+QUERIES: Dict[str, Callable[..., Dict[str, torch.Tensor]]] = {
+    "q1": q1, "q3": q3, "q5": q5, "q6": q6, "q18": q18, "qm": qm, "qq": qq}
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,17 @@
 """The part of ``repro.core.config`` the port needs, and the device rule
 every entry point of the port shares.
 
-The placement policy drives the analytics engine; the allocator kinds and
-the architecture dataclasses (``ArchConfig`` and its family configs,
+The paper's four axes: the placement policy drives the analytics engine;
+the mesh layout (thread placement), the allocator kinds and the OS
+configuration are the axes of the allocator microbenchmark and the layout
+model (``memory/microbench.py``, ``core/meshes.py``). The
+architecture dataclasses (``ArchConfig`` and its family configs,
 ``PaddedDims``) drive the LM stack. They are data, copied from the
 reference so that the port imports nothing of it.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 import math
 from dataclasses import dataclass
@@ -24,6 +28,43 @@ class PlacementPolicy(enum.Enum):
     INTERLEAVE = "interleave"
     LOCAL_ALLOC = "local_alloc"
     PREFERRED = "preferred"
+
+
+class MeshLayout(enum.Enum):
+    """How logical mesh axes map onto the physical torus (paper Section
+    3.2, thread placement). Values match the reference.
+
+    NONE    device enumeration order (the "OS free to migrate" baseline).
+    SPARSE  model-parallel groups spread across distinct neighbourhoods,
+            maximizing aggregate link bandwidth (paper's Sparse affinity).
+    DENSE   model-parallel groups packed into adjacent chips, minimizing hop
+            count inside a group (paper's Dense affinity).
+    """
+
+    NONE = "none"
+    SPARSE = "sparse"
+    DENSE = "dense"
+
+
+@dataclass(frozen=True)
+class OSConfig:
+    """Analogue of the paper's kernel-level switches (Section 3.4).
+
+    ``auto_rebalance``   AutoNUMA analogue: automatically reshard live state
+                         toward its policy-ideal placement between steps.
+    ``page_tokens``      THP analogue for the paged KV cache: tokens per page
+                         (16 = 4KB-ish small page, 512 = 2MB-ish huge page).
+    ``granule_bytes``    allocation granule of the arena allocators.
+    """
+
+    auto_rebalance: bool = True          # Linux default: on (harmful, per paper)
+    page_tokens: int = 512               # THP default: on (large pages)
+    granule_bytes: int = 2 * 1024 * 1024
+
+    def tuned(self) -> "OSConfig":
+        """The paper's recommended configuration (AutoNUMA off, THP off)."""
+        return dataclasses.replace(self, auto_rebalance=False, page_tokens=16,
+                                   granule_bytes=4 * 1024)
 
 
 def resolve_device(device: Union[None, str, torch.device] = None

@@ -1,1 +1,2 @@
-from repro_torch.kernels.hash_aggregate.ops import hash_aggregate_multi
+from repro_torch.kernels.hash_aggregate.ops import (hash_aggregate,
+                                                    hash_aggregate_multi)

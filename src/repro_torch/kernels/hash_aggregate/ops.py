@@ -128,3 +128,13 @@ def hash_aggregate_multi(ids: torch.Tensor, vals: torch.Tensor, *,
     if kernel_mode(mode, ids.device) == "cuda":
         return _launch(ids, vals, n_bins=n_bins)
     return hash_aggregate_multi_ref(ids, vals, n_bins=n_bins)
+
+
+def hash_aggregate(ids: torch.Tensor, vals: torch.Tensor, *, n_bins: int,
+                   mode: Optional[str] = None) -> torch.Tensor:
+    """Partition-local segment sums. ids, vals: (P, T) -> (P, n_bins) f32.
+
+    Thin single-aggregate wrapper over :func:`hash_aggregate_multi` (one
+    launch of its kernel with C = 1 on a CUDA tensor)."""
+    return hash_aggregate_multi(ids, vals[..., None], n_bins=n_bins,
+                                mode=mode)[..., 0]

@@ -15,7 +15,8 @@ from _join_cases import CASES, case
 from _scan_order import kernel_order_scan
 from repro_torch.analytics.columnar import segment_sum, take_rows
 from repro_torch.kernels import common
-from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
+from repro_torch.kernels.hash_aggregate import (hash_aggregate,
+                                                hash_aggregate_multi)
 from repro_torch.kernels.join_probe import join_probe
 from repro_torch.kernels.join_probe.ref import join_probe_ref
 from repro_torch.kernels.radix_partition.ops import (block_histograms,
@@ -170,6 +171,28 @@ def test_cuda_hash_aggregate_splits_wide_columns(dev):
     got = hash_aggregate_multi(ids.to(dev), vals.to(dev), n_bins=100)
     assert common.LAUNCHES["hash_aggregate_multi"] == before + 2
     want = hash_aggregate_multi(ids, vals, n_bins=100)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,T,n_bins", [(8, 4096, 128), (64, 9000, 1024),
+                                        (1, 50_000, 20_000)])
+def test_cuda_hash_aggregate_wrapper_is_one_column_of_the_multi(
+        dev, P, T, n_bins):
+    rng = np.random.RandomState(P + n_bins)
+    ids = torch.from_numpy(rng.randint(-2, n_bins + 2, (P, T))
+                           .astype(np.int32)).to(dev)
+    vals = torch.from_numpy((rng.randn(P, T) * 100).astype(np.float32)
+                            ).to(dev)
+    before = common.LAUNCHES["hash_aggregate_multi"]
+    got = hash_aggregate(ids, vals, n_bins=n_bins)
+    assert common.LAUNCHES["hash_aggregate_multi"] == before + 1
+    multi = hash_aggregate_multi(ids, vals[..., None].contiguous(),
+                                 n_bins=n_bins)
+    assert torch.equal(got.view(torch.int32),
+                       multi[..., 0].view(torch.int32))
+    want = hash_aggregate(ids.cpu(), vals.cpu(), n_bins=n_bins)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-2)
 
@@ -838,3 +861,32 @@ def test_cuda_calibration_writes_a_profile_that_loads(dev, tmp_path):
     finally:
         planner.set_cost_profile(None)
     assert planner.current_cost_profile() == planner.CostProfile()
+
+
+# ---------------------------------------------------------------------------
+# the hand-written TPC-H queries on CUDA tables (analytics/tpch.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("executor", ["xla", "kernel"])
+def test_cuda_imperative_queries_match_run_query(dev, executor):
+    from repro_torch.analytics import tpch
+    data = tpch.generate(scale=0.01, seed=3, device=dev)
+    exact = ("o_orderkey", "count_order", "_count", "_overflow", "med_qty",
+             "med_price")
+    common.reset_launches()
+    for name, query in tpch.QUERIES.items():
+        got = query(data.tables, executor=executor)
+        want = tpch.run_query(name, data, executor=executor)
+        assert set(got) == set(want), name
+        for k, w in want.items():
+            g = got[k]
+            assert g.device.type == "cuda" and g.shape == w.shape, (name, k)
+            if k in exact or not w.is_floating_point():
+                assert torch.equal(g, w), (name, k)
+            else:
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                           atol=1e-3, rtol=1e-4,
+                                           err_msg=f"{name}/{k}")
+    torch.cuda.synchronize()
+    launched = common.LAUNCHES["hash_aggregate_multi"] > 0
+    assert launched == (executor == "kernel")

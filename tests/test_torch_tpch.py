@@ -195,7 +195,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.analytics.aggregate, repro_torch.analytics.join, "
             "repro_torch.analytics.telemetry, repro_torch.analytics.tracing, "
             "repro_torch.analytics.service, "
-            "repro_torch.analytics.dist_join_bench\n"
+            "repro_torch.analytics.dist_join_bench, "
+            "repro_torch.memory.microbench, repro_torch.core.topology, "
+            "repro_torch.core.meshes\n"
             "import runpy\n"
             "runpy.run_path(%r)\n"
             "runpy.run_path(%r)\n"
