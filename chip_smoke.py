@@ -80,7 +80,20 @@ points:
     prefill (32 ``wkv6`` launches, no other kernel), the kernel against
     its plain version at layer 0's inputs and on edge cases, logits
     against the plain prefill, 64 decode steps against the forward pass,
-    and 32 requests served through the launcher.
+    and 32 requests served through the launcher;
+  * training: the gradients of ``linear_scan``, ``flash_attention`` and
+    ``wkv6`` with the kernels' forwards against plain autograd, at a
+    small and at the full-width shape; recurrentgemma-2b at full width
+    and depth (fp32 parameters, master weights and moments), batch 1 x
+    4096 tokens, ``remat="block"``: one loss and backward with the
+    kernels against the plain versions, then 3 steps through
+    ``repro_torch.runtime.train_loop.train`` (16 ``flash_attention`` and
+    52 ``rglru_scan`` launches a step; step 0 at lr 0 leaves the master
+    weights' bits, step 1 moves them), with the step's time split into
+    forward+backward and optimizer, tokens/s, peak memory and idle share;
+    rwkv6-7b at full width cut to 2 layers, one loss and backward with
+    the ``wkv6`` kernel against the plain forward; and the
+    checkpoint/restart drill of reduced recurrentgemma-2b on the card.
 
 The kernel launch counts are zeroed just before each path and read just
 after it; a kernel of a path that never launched fails the run. It also
@@ -90,8 +103,9 @@ peak memory per phase. Any failed phase exits non-zero. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
 
-The last lines of standard output are the calibration report, the
-kernels' JSON record, the card's name and power limit, and
+The last lines of standard output are the training step's numbers, the
+calibration report, the kernels' JSON record, the card's name and power
+limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -145,9 +159,12 @@ PROFILER_SESSIONS = 3
 
 def device_sessions(fn, reps: int):
     """(device records, device microseconds, {CUDA kernel name:
-    launches}) of one call of ``fn`` under torch.profiler, from
-    ``PROFILER_SESSIONS`` sessions of ``reps`` calls each after one
-    warm-up.
+    launches}, {name: microseconds a launch}) of one call of ``fn`` under
+    torch.profiler, from ``PROFILER_SESSIONS`` sessions of ``reps`` calls
+    each after one warm-up. Only the device's records are traced: nothing
+    here reads the host's, and a call of tens of thousands of operations
+    (a train step) then reads in seconds, where the host's records take a
+    minute.
 
     On the card this runs on, a session now and then loses CUDA records
     of work that ran (all of them, or some of a kernel's) and now and
@@ -167,8 +184,7 @@ def device_sessions(fn, reps: int):
     counts, times, totals, lost = {}, {}, [], 0
     while (len(totals) < PROFILER_SESSIONS
            and lost < PROFILER_SESSIONS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -197,8 +213,9 @@ def device_sessions(fn, reps: int):
     per_call = {k: n for k, n in per_call.items() if n}
     if not per_call:
         raise RuntimeError("torch.profiler saw no device work")
-    busy = sum(n * times[k] / sum(counts[k]) for k, n in per_call.items())
-    return sum(per_call.values()), busy, per_call
+    each = {k: times[k] / sum(counts[k]) for k in per_call}
+    busy = sum(n * each[k] for k, n in per_call.items())
+    return sum(per_call.values()), busy, per_call, each
 
 
 def device_ms(fn, reps: int) -> float:
@@ -1265,7 +1282,7 @@ def device_share(fn):
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    ops, busy_us, _ = device_sessions(fn, 1)
+    ops, busy_us, *_ = device_sessions(fn, 1)
     busy = busy_us / 1e3
     return dict(wall_ms=wall, device_busy_ms=busy, device_ops=ops,
                 idle_share=1 - busy / wall,
@@ -2412,6 +2429,18 @@ def lm_kernel_edges(dev):
     check_scan(a, b, "near-1 decays (a in [0.999, 0.99999])")
 
 
+def kernel_kind(name: str) -> str:
+    """The kind of a CUDA record's name: one of the LM kernels, a matrix
+    product, or other."""
+    name = name.lower()
+    return ("flash_attention" if "fa_fwd" in name else
+            "rglru_scan" if "scan_" in name else
+            "wkv6" if "wkv6" in name else
+            "matmul" if any(w in name for w in ("gemm", "cutlass", "xmma",
+                                                "sm90")) else
+            "other")
+
+
 def device_breakdown(fn):
     """Device ms of one warm call of ``fn`` by kind of kernel (self CUDA
     time under torch.profiler), beside its wall ms and the count of device
@@ -2431,13 +2460,7 @@ def device_breakdown(fn):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ops += e.count
-        name = e.key.lower()
-        kind = ("flash_attention" if "fa_fwd" in name else
-                "rglru_scan" if "scan_" in name else
-                "wkv6" if "wkv6" in name else
-                "matmul" if any(w in name for w in ("gemm", "cutlass",
-                                                    "xmma", "sm90")) else
-                "other")
+        kind = kernel_kind(e.key)
         kinds[kind] = kinds.get(kind, 0.0) + getattr(
             e, "self_device_time_total", 0) / 1e3
     busy = sum(kinds.values())
@@ -2839,6 +2862,494 @@ def rwkv_phase(dev):
                 launches=launches["wkv6"], max_abs_err=wkv_err, **wkv_time)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training on the card (recurrentgemma-2b at full width)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "recurrentgemma-2b"
+# train_4k's sequence; its global batch of 256 is cut to 1 on one card
+TRAIN_B, TRAIN_S = 1, 4096
+TRAIN_STEPS, TRAIN_WARMUP = 3, 2          # the reference CLI's warmup
+TRAIN_PEAK_GIB = 76.0                     # the card's 80 GB, less headroom
+# kernels against plain versions over one loss and backward of 26 layers:
+# the loss within 1e-4, the global grad norm within 1e-3 (relative)
+TRAIN_LOSS_TOL, TRAIN_NORM_TOL = 1e-4, 1e-3
+# the wrappers' grads against plain autograd, relative to the largest
+# |grad|: the scan 1e-5 (float32 sums in other orders), the attention
+# 1e-4 (the chunked backward against the naive softmax's)
+GRAD_SCAN_TOL, GRAD_FA_TOL = 1e-5, 1e-4
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_S = 2, 512  # of 32 layers; 1 x 512 tokens
+FT_TOL = 1e-6                             # a restarted run's final loss
+
+
+def grad_held(got, want, tol, label):
+    """Raise unless max|got - want| <= tol * max|want| for each pair;
+    returns the largest of those ratios."""
+    import torch
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: grad {i} has shape "
+                                 f"{tuple(g.shape)} or is not finite")
+        rel = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        if not rel <= tol:
+            raise AssertionError(f"{label}: grad {i} off by {rel!r} of its "
+                                 f"largest |value|, over {tol}")
+        worst = max(worst, rel)
+    return worst
+
+
+def wrapper_grads(dev):
+    """Gradients of the three wrappers with the kernels' forwards against
+    plain autograd, at a small shape and at the full-width one; then the
+    backward passes' pieces timed at the full shapes. Returns the timings
+    and the largest relative errors."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_chunked_bwd, attention_chunked_with_lse, attention_naive)
+    from repro_torch.kernels.rglru_scan.ops import linear_scan
+    from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def launched(name, fn):
+        before = common.LAUNCHES[name]
+        out = fn()
+        return out, common.LAUNCHES[name] - before
+
+    errs = {}
+    for shape, label in [((2, 257, 130), "small"),
+                         ((1, 4096, 2560), "full width")]:
+        a = (torch.rand(shape, device=dev, generator=gen) * 0.5
+             + 0.499).requires_grad_()
+        b, g = rnd(*shape).requires_grad_(), rnd(*shape)
+        got, n = launched("rglru_scan", lambda: torch.autograd.grad(
+            linear_scan(a, b, mode="cuda"), (a, b), g))
+        want = torch.autograd.grad(linear_scan_sequential(a, b), (a, b), g)
+        if n != 2:
+            raise AssertionError(f"linear_scan grads launched the scan {n} "
+                                 "times, want 2 (forward, reversed)")
+        errs[f"rglru_scan {label}"] = grad_held(
+            got, want, GRAD_SCAN_TOL, f"linear_scan grads {label}")
+    scan_in = (a.detach(), b.detach(), g)
+    for (B, S, Hq, Hkv, D, window), label in [
+            ((1, 300, 4, 1, 64, 128), "small"),
+            ((1, 4096, 10, 1, 256, 2048), "full width")]:
+        ins = [rnd(B, S, h, D).requires_grad_() for h in (Hq, Hkv, Hkv)]
+        g = rnd(B, S, Hq, D)
+        got, n = launched("flash_attention", lambda: torch.autograd.grad(
+            flash_attention(*ins, window=window, mode="cuda"), ins, g))
+        if n != 1:
+            raise AssertionError(f"flash_attention grads launched the "
+                                 f"kernel {n} times, want 1 (the forward)")
+        # the backward is plain code: the kernel's forward does not enter
+        # it, so the plain forward's grads are the same bits
+        plain = torch.autograd.grad(flash_attention(
+            *ins, window=window, mode="ref"), ins, g)
+        if not all(torch.equal(x, y) for x, y in zip(got, plain)):
+            raise AssertionError("flash_attention: the kernel's forward "
+                                 "changed the backward's bits")
+        want = torch.autograd.grad(attention_naive(*ins, window=window),
+                                   ins, g)
+        errs[f"flash_attention {label}"] = grad_held(
+            got, want, GRAD_FA_TOL, f"flash_attention grads {label}")
+        del want, plain
+    fa_in = ([x.detach() for x in ins], g, window)
+    for shape, label in [((1, 64, 4, 64), "small"),
+                         ((1, 512, 64, 64), "full width")]:
+        ins = [(rnd(*shape) * 0.5).requires_grad_() for _ in range(3)]
+        ins.append((0.6 + 0.39 * torch.rand(shape, device=dev,
+                                            generator=gen)).requires_grad_())
+        ins.append((rnd(*shape[2:]) * 0.5).requires_grad_())
+        gy, gs = rnd(*shape), rnd(shape[0], shape[2], shape[3], shape[3])
+        got, n = launched("wkv6", lambda: torch.autograd.grad(
+            wkv6(*ins, mode="cuda"), ins, (gy, gs)))
+        want = torch.autograd.grad(wkv6_ref(*ins), ins, (gy, gs))
+        if n != 1 or not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"wkv6 grads {label}: {n} launches, or not "
+                                 "the bits of autograd through wkv6_ref")
+        errs[f"wkv6 {label}"] = 0.0
+    log(f"wrapper grads against plain autograd (relative to the largest "
+        f"|grad|; wkv6 bit-equal): {json.dumps(errs)}")
+
+    # the backward passes' pieces at the full shapes
+    a, b, g = scan_in
+    a_rev = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1).flip(1)
+    g_rev = g.flip(1)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: linear_scan(a, b, mode="cuda"), reps=20)
+        rev_ms = cuda_ms(lambda: linear_scan(a_rev, g_rev, mode="cuda"),
+                         reps=20)
+    a.requires_grad_(), b.requires_grad_()
+    h = linear_scan(a, b, mode="cuda")
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(h, (a, b), g,
+                                                 retain_graph=True), reps=10)
+    (q, k, v), g, window = fa_in
+    with torch.no_grad():
+        lse_ms = cuda_ms(lambda: attention_chunked_with_lse(
+            q, k, v, window=window), reps=3)
+        out, lse = attention_chunked_with_lse(q, k, v, window=window)
+        fa_bwd_ms = cuda_ms(lambda: attention_chunked_bwd(
+            q, k, v, out, lse, g, window=window), reps=3)
+    times = dict(
+        rglru_scan=dict(shape=f"a, b {tuple(a.shape)} f32",
+                        forward_ms=fwd_ms, reversed_ms=rev_ms,
+                        op_backward_ms=bwd_ms),
+        flash_attention=dict(
+            shape=f"q {tuple(q.shape)}, k/v {tuple(k.shape)} f32, window "
+                  f"{window}", plain_backward_ms=lse_ms + fa_bwd_ms,
+            recompute_with_lse_ms=lse_ms, chunked_bwd_ms=fa_bwd_ms))
+    log(f"backward timings: {json.dumps(times)}")
+    return times, errs
+
+
+def loss_and_grad_norm(model, params, batch, hidden):
+    """One ``loss_fn`` and its backward: (loss, global grad norm), the
+    grads freed; the last layer's output (the final norm's input) is
+    appended to ``hidden``."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import _build, _flatten
+    paths, leaves = zip(*((p, v.detach().requires_grad_())
+                          for p, v in _flatten(params)))
+    seen = []
+    with capture(model, "_head", seen, keep=1):
+        loss, _ = model.loss_fn(_build(list(paths), leaves), batch)
+    hidden.append(seen[0][0][1].detach())
+    grads = torch.autograd.grad(loss, leaves)
+    return (float(loss.detach()),
+            float(adamw.global_norm(dict(enumerate(grads)))))
+
+
+def kernels_vs_plain_step(model, plain, params, batch, label):
+    """Step A: one loss and backward with the kernels and with the plain
+    versions on the same params and batch; the loss and the global grad
+    norm held within TRAIN_LOSS_TOL and TRAIN_NORM_TOL. Returns the
+    kernels' launches in the kernels' pass."""
+    from repro_torch.kernels import common
+    before = dict(common.LAUNCHES)
+    hidden = []
+    t0 = time.perf_counter()
+    k_loss, k_norm = loss_and_grad_norm(model, params, batch, hidden)
+    k_s = time.perf_counter() - t0
+    launched = {n: c - before[n] for n, c in common.LAUNCHES.items()
+                if c != before[n]}
+    t0 = time.perf_counter()
+    p_loss, p_norm = loss_and_grad_norm(plain, params, batch, hidden)
+    p_s = time.perf_counter() - t0
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    norm_rel = abs(k_norm - p_norm) / abs(p_norm)
+    h_err = float((hidden[0] - hidden[1]).abs().max())
+    log(f"{label} loss and backward, kernels vs plain: loss {k_loss!r} / "
+        f"{p_loss!r} (rel {loss_rel!r}), grad norm {k_norm!r} / {p_norm!r} "
+        f"(rel {norm_rel!r}), last layer's output max_abs_err {h_err!r} "
+        f"(|value| up to {float(hidden[1].abs().max())!r}); {k_s:.3f} s / "
+        f"{p_s:.3f} s; kernels' launches {launched}")
+    if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_NORM_TOL):
+        raise AssertionError(f"{label}: kernels and plain versions part: "
+                             f"loss rel {loss_rel!r} (limit "
+                             f"{TRAIN_LOSS_TOL}), grad norm rel "
+                             f"{norm_rel!r} (limit {TRAIN_NORM_TOL})")
+    return launched
+
+
+@contextlib.contextmanager
+def step_probe(train_loop):
+    """Wrap the train loop's step and optimizer: CUDA events around each
+    step and each update, launch counts per step, and the checks that
+    step 0 (lr 0) leaves the master weights' bits and that step 1 moves
+    every leaf whose grad is not zero. Step 1's check reads nothing back
+    inside the step: its flags are read after the run."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.optim.adamw import leaves
+    rec = dict(steps=[], updates=[], launches=[], checks=[], moved=None)
+    make, update = train_loop.make_train_step, train_loop.adamw.update
+
+    def fingerprints(tree):
+        return [v.view(torch.int32).sum(dtype=torch.int64)
+                for v in leaves(tree)]
+
+    def probed_update(grads, state, params, lr, cfg):
+        i = len(rec["updates"])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        snap = [v.cpu() for v in leaves(state.master)] if i == 0 else None
+        marks = fingerprints(state.master) if i == 1 else None
+        ev[0].record()
+        out = update(grads, state, params, lr, cfg)
+        ev[1].record()
+        rec["updates"].append(ev)
+        if snap is not None:
+            same = all(torch.equal(v, s.to(v.device)) for v, s in
+                       zip(leaves(out[1].master), snap))
+            rec["checks"].append(("step 0 leaves the master bits", same))
+            del snap
+        if marks is not None:
+            after = fingerprints(out[1].master)
+            rec["moved"] = (torch.stack([a != b for a, b in
+                                         zip(marks, after)]),
+                            torch.stack([g.any() for g in leaves(grads)]))
+        return out
+
+    def probed_make(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+
+        def step(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            before = dict(common.LAUNCHES)
+            ev[0].record()
+            out = step_fn(*a, **k)
+            ev[1].record()
+            rec["steps"].append(ev)
+            rec["launches"].append({n: c - before[n]
+                                    for n, c in common.LAUNCHES.items()})
+            return out
+        return step
+
+    train_loop.make_train_step = probed_make
+    train_loop.adamw.update = probed_update
+    try:
+        yield rec
+    finally:
+        train_loop.make_train_step, train_loop.adamw.update = make, update
+    moved, live = (x.tolist() for x in rec["moved"])
+    rec["checks"].append((
+        f"step 1 moves the params ({sum(moved)} of {len(moved)} leaves "
+        f"moved, {sum(live)} have a grad)",
+        all(m for m, g in zip(moved, live) if g) and any(moved)))
+
+
+def lm_train_phase(dev):
+    """recurrentgemma-2b at full width and depth: step A (kernels against
+    plain versions), step B (``train`` with the kernels, the main path,
+    launch counts read around it), the step's timings, peak and idle
+    share. Returns (launches per step, the record's numbers)."""
+    import dataclasses
+    import gc
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import LM_SHAPES, RunConfig, TrainConfig
+    from repro_torch.core.params import param_count
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+
+    marks = [("start", time.perf_counter())]
+    arch = get_arch(TRAIN_ARCH)
+    model = LMModel(arch, device=dev)              # remat="block"
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    plan = model.plan
+    pat = plan["pattern"]
+    # the checkpointed super-blocks run their kernels' forwards twice (the
+    # pass and the recompute), the unwrapped tail once; the scan's
+    # reversed pass once per RG-LRU layer
+    want = {"flash_attention": plan["n_super"] * pat.count("local_attn") * 2
+            + plan["tail"].count("local_attn"),
+            "rglru_scan": plan["n_super"] * pat.count("rglru") * 3
+            + plan["tail"].count("rglru") * 2}
+    n_params = param_count(model.schema())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, TRAIN_B, TRAIN_S, step=0, seed=SEED).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(seed=SEED)
+    log(f"train: {TRAIN_ARCH} at full width and depth ({arch.n_layers} "
+        f"layers, d_model {arch.d_model}, vocab {arch.vocab_size}), "
+        f"{n_params} fp32 parameters, fp32 master weights and moments; "
+        f"batch {TRAIN_B} x seq {TRAIN_S} (train_4k's global batch 256 cut "
+        f"to 1 on one card), remat {model.remat}")
+    step_a = kernels_vs_plain_step(model, plain, params, batch,
+                                   f"{TRAIN_ARCH} step A")
+    if step_a != want:
+        raise AssertionError(f"step A launched {step_a}, want {want}")
+    del params, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("train step A (kernels vs plain)")
+    marks.append(("step A", time.perf_counter()))
+
+    cfg = RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                    train=TrainConfig(warmup_steps=TRAIN_WARMUP))
+    with step_probe(train_loop) as rec:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()                 # just before the path
+        t0 = time.perf_counter()
+        res = train_loop.train(model, cfg, n_steps=TRAIN_STEPS,
+                               batch=TRAIN_B, seq=TRAIN_S, seed=SEED)
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)        # just after it
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [a.elapsed_time(b) for a, b in rec["steps"]]
+    opt_ms = [a.elapsed_time(b) for a, b in rec["updates"]]
+    log(f"train B: {json.dumps(dataclasses.asdict(res))}, {wall:.3f} s, "
+        f"launches {launches}, per step {rec['launches']}, peak "
+        f"{peak:.3f} GiB, step ms {step_ms}, optimizer ms {opt_ms}")
+    for what, ok in rec["checks"]:
+        log(f"train B: {what}: {ok}")
+        if not ok:
+            raise AssertionError(f"train B: {what}: failed")
+    if len(rec["checks"]) != 2 or res.steps_run != TRAIN_STEPS or \
+            not all(map(math.isfinite, res.losses)):
+        raise AssertionError(f"train B: {res} ({len(rec['checks'])} checks)")
+    for i, got in enumerate(rec["launches"]):
+        if {n: got[n] for n in want} != want or got["wkv6"]:
+            raise AssertionError(f"train step {i} launched {got}, want "
+                                 f"{want}")
+    launched = {n: rec["launches"][-1][n] for n in want}
+    if peak >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"train B peak {peak:.3f} GiB reaches "
+                             f"{TRAIN_PEAK_GIB}")
+    warm = statistics.median(step_ms[1:])
+    warm_opt = statistics.median(opt_ms[1:])
+    losses = res.losses
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("train B", time.perf_counter()))
+
+    # the device's busy time in one step (fresh state; 3 profiler sessions)
+    # against the step's span on the stream (CUDA events above): the idle
+    # share of a step
+    params = model.init_params(seed=SEED)
+    state = adamw.init(params, cfg.train)
+    step_fn = train_loop.make_train_step(model, cfg, total_steps=TRAIN_STEPS)
+    ops, busy_us, per_call, each = device_sessions(
+        lambda: step_fn(params, state, batch, 2), 1)
+    marks.append(("profiled step", time.perf_counter()))
+    kinds = {}
+    for name, n in per_call.items():
+        kind = kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + n * each[name] / 1e3
+    del params, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers = dict(step_ms=warm, forward_backward_ms=warm - warm_opt,
+                   optimizer_ms=warm_opt,
+                   tokens_per_s=TRAIN_B * TRAIN_S / warm * 1e3,
+                   peak_gib=peak, device_busy_ms=busy_us / 1e3,
+                   device_ops=ops, idle_share=1 - busy_us / 1e3 / warm,
+                   device_ms_by_kind=kinds,
+                   launches_per_step=launched, losses=losses)
+    log(f"train step (median of steps 2-{TRAIN_STEPS}, CUDA events; busy "
+        f"time from torch.profiler): {json.dumps(numbers)}")
+    log(f"{TRAIN_ARCH} training, s: " + ", ".join(
+        f"{name} {t - prev:.3f}" for (_, prev), (name, t) in
+        zip(marks, marks[1:])))
+    peak_line("train B and the profiled step")
+    return dict(launched), numbers
+
+
+def rwkv_train_check(dev):
+    """rwkv6-7b at full width, depth cut to RWKV_TRAIN_LAYERS: one loss and
+    backward with the wkv6 kernel's forward against the plain forward.
+    Returns the kernel's launches in that pass."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.lm import LMModel
+    arch = dataclasses.replace(get_arch(RWKV_ARCH),
+                               n_layers=RWKV_TRAIN_LAYERS)
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    params = model.init_params(seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, 1, RWKV_TRAIN_S, step=0, seed=SEED).items()}
+    log(f"train: {RWKV_ARCH} at full width (d_model {arch.d_model}, "
+        f"{arch.d_model // arch.rwkv.head_size} heads of "
+        f"{arch.rwkv.head_size}), depth cut to {RWKV_TRAIN_LAYERS} of 32 "
+        f"layers, 1 x {RWKV_TRAIN_S} tokens")
+    launched = kernels_vs_plain_step(model, plain, params, batch,
+                                     f"{RWKV_ARCH} ({RWKV_TRAIN_LAYERS} "
+                                     "layers)")
+    if launched != {"wkv6": 2 * RWKV_TRAIN_LAYERS}:
+        raise AssertionError(f"rwkv loss and backward launched {launched}")
+    del params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line(f"rwkv6-7b loss and backward, {RWKV_TRAIN_LAYERS} layers")
+    return launched["wkv6"]
+
+
+def ft_drill(dev):
+    """The reference's FT drill on the card with reduced
+    recurrentgemma-2b: 8 steps, a checkpoint every 2, a failure at step 5,
+    against an uninterrupted run. The reduced head dim (16) is not one of
+    the attention kernel's (64, 128, 256), so the drill runs the plain
+    versions."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.reduced import REDUCED
+    from repro_torch.core.config import LM_SHAPES, RunConfig, TrainConfig
+    from repro_torch.models.lm import LMModel
+    from repro_torch.runtime import FailureInjector, train
+    arch = REDUCED[TRAIN_ARCH]
+    model = LMModel(arch, device=dev, kernel_mode="ref")
+    cfg = RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                    train=TrainConfig(warmup_steps=2))
+    tmp = tempfile.mkdtemp(prefix="ft_drill_")
+    try:
+        t0 = time.perf_counter()
+        res = train(model, cfg, n_steps=8, batch=2, seq=16, ckpt_dir=tmp,
+                    ckpt_every=2, injector=FailureInjector(fail_at_steps=[5]))
+        clean = train(model, cfg, n_steps=8, batch=2, seq=16)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = abs(res.final_loss - clean.final_loss) / abs(clean.final_loss)
+    log(f"FT drill ({arch.name} reduced, 8 steps, checkpoint every 2, "
+        f"failure at 5): restarts {res.restarts}, steps {res.steps_run}, "
+        f"final loss {res.final_loss!r} vs uninterrupted "
+        f"{clean.final_loss!r} (rel {rel!r}), {secs:.3f} s")
+    if (res.restarts, res.steps_run) != (1, 8) or not rel <= FT_TOL:
+        raise AssertionError(f"FT drill: {res} against {clean}")
+
+
+def train_phase(dev):
+    """Training on the card: the wrappers' gradients, recurrentgemma-2b's
+    train steps, rwkv6-7b's gradient check, the FT drill. Returns
+    ({kernel: launches per train step}, the backward timings, the step's
+    numbers)."""
+    import gc
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products, as the
+    torch.backends.cudnn.allow_tf32 = False         # reference's
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"train phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        "allocated before it")
+    times, errs = wrapper_grads(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("wrapper grads")
+    marks = [time.perf_counter()]
+    per_step, numbers = lm_train_phase(dev)
+    marks.append(time.perf_counter())
+    per_step["wkv6"] = rwkv_train_check(dev)
+    marks.append(time.perf_counter())
+    ft_drill(dev)
+    marks.append(time.perf_counter())
+    log(f"train phase: {marks[-1] - t0:.3f} s (wrapper grads "
+        f"{marks[0] - t0:.3f}, recurrentgemma-2b {marks[1] - marks[0]:.3f}, "
+        f"rwkv6-7b {marks[2] - marks[1]:.3f}, FT drill "
+        f"{marks[3] - marks[2]:.3f})")
+    return per_step, times, errs, numbers
+
+
 def peak_line(label: str) -> None:
     """Print the phase's peak device memory and reset the counter."""
     import torch
@@ -2949,6 +3460,21 @@ def main() -> int:
     lm_kernels = lm_phase(dev)
     torch.cuda.reset_peak_memory_stats()
     wkv_kernel = rwkv_phase(dev)
+    torch.cuda.reset_peak_memory_stats()
+    train_launches, train_times, grad_errs, train_numbers = train_phase(dev)
+    for row in lm_kernels + [wkv_kernel]:
+        row["launches_train_step"] = train_launches[row["name"]]
+    lm_kernels[0].update(backward=dict(
+        train_times["flash_attention"], route="plain torch (the reference's "
+        "chunked recompute)", grad_rel_err=grad_errs[
+            "flash_attention full width"]))
+    lm_kernels[1].update(backward=dict(
+        train_times["rglru_scan"], route="the same CUDA kernel, reversed",
+        grad_rel_err=grad_errs["rglru_scan full width"]))
+    wkv_kernel.update(
+        backward=dict(route="autograd through wkv6_ref (bit-equal)"),
+        launches_train_step_note=f"{RWKV_ARCH}, {RWKV_TRAIN_LAYERS} of 32 "
+        f"layers, one loss and backward at 1 x {RWKV_TRAIN_S}")
 
     head = agg_times["q18"]
     kernels = [
@@ -2982,6 +3508,7 @@ def main() -> int:
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
+    print("train " + json.dumps(train_numbers))
     print("calibration " + json.dumps(calib_report))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,7 +6,9 @@ the mesh layout (thread placement), the allocator kinds and the OS
 configuration are the axes of the allocator microbenchmark and the layout
 model (``memory/microbench.py``, ``core/meshes.py``). The
 architecture dataclasses (``ArchConfig`` and its family configs,
-``PaddedDims``) drive the LM stack. They are data, copied from the
+``PaddedDims``) drive the LM stack, and the shape and run configurations
+(``ShapeConfig``, ``LM_SHAPES``, ``ShardingConfig``, ``TrainConfig``,
+``RunConfig``) its training loop. They are data, copied from the
 reference so that the port imports nothing of it.
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ import dataclasses
 import enum
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -223,6 +225,87 @@ class ArchConfig:
         expert_ffn = 3 * d * self.moe.d_expert
         inactive = (self.moe.n_experts - self.moe.top_k) * expert_ffn * moe_layers
         return int(self.param_count() - inactive)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned per-arch shape set)
+# ---------------------------------------------------------------------------
+class StepKind(enum.Enum):
+    TRAIN = "train"        # the train step
+    PREFILL = "prefill"    # the prefill (serve) step over the full sequence
+    DECODE = "decode"      # the serve step: one token, KV cache of seq_len
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: StepKind
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES: Mapping[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", StepKind.TRAIN, 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", StepKind.PREFILL, 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", StepKind.DECODE, 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", StepKind.DECODE, 524_288, 1),
+}
+
+
+# ---------------------------------------------------------------------------
+# Run configuration: arch x shape x paper knobs x training knobs
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShardingConfig:
+    """Parallelism degrees and options, as the reference declares them.
+    The port runs on one device; these fields are carried so that a run
+    configuration means the same in both packages.
+
+    ``strategy``: "tp" (tensor parallelism over the model axis, the
+    paper-faithful baseline layout) or "fsdp" (batch over every mesh axis,
+    parameters sharded for storage and gathered per layer)."""
+
+    policy: PlacementPolicy = PlacementPolicy.INTERLEAVE
+    mesh_layout: MeshLayout = MeshLayout.SPARSE
+    strategy: str = "tp"                 # "tp" | "fsdp"
+    preferred_index: int = 0
+    sequence_parallel: bool = True       # shard residual stream seq dim on model axis
+    expert_parallel_data: bool = False   # MoE experts across data x model axes
+    gradient_compression: bool = False   # int8 + error feedback DP all-reduce
+    decode_dshard: bool = False          # decode KV cache sharded over head_dim
+    donate_state: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    accum_steps: int = 1                # gradient accumulation microbatches
+    grad_accum_dtype: str = "float32"   # "bfloat16" halves the accum buffer
+    moment_dtype: str = "float32"       # "bfloat16" halves optimizer memory
+    master_weights: bool = True         # fp32 master copy
+    remat: str = "block"                # none | block | full
+    z_loss: float = 0.0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    arch: ArchConfig
+    shape: ShapeConfig
+    sharding: ShardingConfig = ShardingConfig()
+    train: TrainConfig = TrainConfig()
+    os: OSConfig = OSConfig().tuned()    # paper recommendation by default
+    allocator: AllocatorKind = AllocatorKind.SLAB
+    param_dtype: str = "bfloat16"
+    activation_dtype: str = "bfloat16"
+
+    def cache_key(self) -> str:
+        return f"{self.arch.name}|{self.shape.name}|{self.sharding.policy.value}"
 
 
 

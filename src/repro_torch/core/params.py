@@ -9,7 +9,9 @@ hybrid pattern, ``blocks/...`` for a dense stack) and a pattern's tail is
 
 ``init_params`` draws every leaf from the same distribution with the same
 scale as the reference's ``_materialize``, from a ``torch.Generator``; the
-bits differ. ``from_reference`` carries the reference's own parameter (or
+bits differ. ``abstract_params`` gives the same tree as tensors on the
+``meta`` device (shape and dtype, no storage); ``axes_tree`` and
+``shapes_tree`` give each leaf's logical axes and shape. ``from_reference`` carries the reference's own parameter (or
 cache) tree across as numpy arrays, which is how the tests give both
 packages the same weights.
 """
@@ -108,6 +110,30 @@ def init_params(schema: Dict[str, Any], generator: torch.Generator,
         return {k: (_materialize(node[k], generator, dtype, dev)
                     if is_def(node[k]) else build(node[k]))
                 for k in sorted(node)}
+    return build(schema)
+
+
+def abstract_params(schema: Dict[str, Any],
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """The parameter tree as ``meta`` tensors: each leaf's shape and dtype
+    (its own override, else ``dtype``) with no storage behind it."""
+    def build(node):
+        return {k: (torch.empty(v.shape, device="meta",
+                                dtype=_torch_dtype(v.dtype or dtype))
+                    if is_def(v) else build(v))
+                for k, v in node.items()}
+    return build(schema)
+
+
+def axes_tree(schema: Dict[str, Any]) -> Dict[str, Any]:
+    def build(node):
+        return {k: (v.axes if is_def(v) else build(v)) for k, v in node.items()}
+    return build(schema)
+
+
+def shapes_tree(schema: Dict[str, Any]) -> Dict[str, Any]:
+    def build(node):
+        return {k: (v.shape if is_def(v) else build(v)) for k, v in node.items()}
     return build(schema)
 
 

@@ -1,12 +1,14 @@
-"""Attention op: the flash-attention forward (kernel).
+"""Attention op: the flash-attention forward (kernel) and its backward.
 
-On a CUDA tensor ``flash_attention`` launches the hand-written kernel
-(``csrc/flash_attention.cu``) or raises; on a CPU tensor it runs the plain
-version (``ref.attention_chunked``). There is no fallback from one to the
-other. The forward is all this slice needs: the op raises if a gradient
-is asked of it (the reference's backward, a chunked recompute, comes with
-training). One-token decode has no kernel, in the reference or here: it is
-the plain ``ref.decode_attention_ref`` on every device.
+On a CUDA tensor ``flash_attention``'s forward launches the hand-written
+kernel (``csrc/flash_attention.cu``) or raises; on a CPU tensor it runs
+the plain version (``ref.attention_chunked``). There is no fallback from
+one to the other. The backward is the reference's: (out, lse) recomputed
+with the plain ``ref.attention_chunked_with_lse``, then the blockwise
+``ref.attention_chunked_bwd``, on every device. The reference has no
+backward kernel either; its products go to the compiler, here to
+``torch.matmul``. One-token decode has no kernel, in the reference or
+here: it is the plain ``ref.decode_attention_ref`` on every device.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_input, count_launch,
                                         kernel_mode, stream_handle)
-from repro_torch.kernels.flash_attention.ref import attention_chunked
+from repro_torch.kernels.flash_attention.ref import (
+    attention_chunked, attention_chunked_bwd, attention_chunked_with_lse)
 
 HEAD_DIMS = (64, 128, 256)        # the kernel's instantiations
 
@@ -74,20 +77,40 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, scale: Optional[float] = None,
-                    mode: Optional[str] = None) -> torch.Tensor:
-    """Multi-head / grouped-query attention forward.
-
-    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention is forward only in this port: "
-                           "run it under torch.no_grad()")
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
+def _dispatch(q, k, v, causal, window, q_offset, scale, mode):
     if kernel_mode(mode, q.device) == "cuda":
         return _launch(q.contiguous(), k.contiguous(), v.contiguous(),
                        causal=causal, window=window, q_offset=q_offset,
                        scale=scale)
     return attention_chunked(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)
+
+
+class _Attention(torch.autograd.Function):
+    """The dispatched forward; the reference's recompute-based backward
+    (no residual but q, k, v: the memory stays flat in seq_len)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale, mode):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = dict(causal=causal, window=window, q_offset=q_offset,
+                       scale=scale)
+        return _dispatch(q, k, v, causal, window, q_offset, scale, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        out, lse = attention_chunked_with_lse(q, k, v, **ctx.cfg)
+        dq, dk, dv = attention_chunked_bwd(q, k, v, out, lse, g, **ctx.cfg)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    mode: Optional[str] = None) -> torch.Tensor:
+    """Multi-head / grouped-query attention.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _Attention.apply(q, k, v, causal, window, q_offset, scale, mode)

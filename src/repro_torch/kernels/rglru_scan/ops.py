@@ -1,11 +1,13 @@
-"""The linear-scan op of the RG-LRU block.
+"""The linear-scan op of the RG-LRU block, with its backward.
 
 On a CUDA tensor ``linear_scan`` launches the hand-written kernel
 (``csrc/rglru_scan.cu``) or raises; on a CPU tensor it runs the plain
 version (``ref.linear_scan_sequential``). There is no fallback from one
-to the other. The forward is all this slice needs: the op raises if a
-gradient is asked of it (its backward, the same scan reversed, comes with
-training).
+to the other. The backward of h_t = a_t h_{t-1} + b_t is itself a linear
+scan, run reversed, as in the reference:
+  db_t = g_t + a_{t+1} db_{t+1}         (a suffix scan of the gradients)
+  da_t = db_t * h_{t-1}
+so it goes through the same dispatch: the CUDA kernel on the card.
 """
 from __future__ import annotations
 
@@ -65,13 +67,38 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
+def _dispatch(a: torch.Tensor, b: torch.Tensor,
+              mode: Optional[str]) -> torch.Tensor:
+    if kernel_mode(mode, a.device) == "cuda":
+        return _launch(a.float().contiguous(), b.float().contiguous())
+    return linear_scan_sequential(a, b)
+
+
+class _LinearScan(torch.autograd.Function):
+    """The dispatched scan; its backward is the same scan reversed."""
+
+    @staticmethod
+    def forward(ctx, a, b, mode):
+        h = _dispatch(a, b, mode)
+        ctx.save_for_backward(a, h)
+        ctx.mode, ctx.b_dtype = mode, b.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        af = a.float()
+        # the suffix scan db_t = g_t + a_{t+1} db_{t+1}, as a prefix scan
+        # of the flipped sequences
+        a_next = torch.cat([af[:, 1:], torch.zeros_like(af[:, :1])], dim=1)
+        db = _dispatch(a_next.flip(1), g.float().flip(1), ctx.mode).flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        da = db * h_prev
+        return da.to(a.dtype), db.to(ctx.b_dtype), None
+
+
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
                 mode: Optional[str] = None) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t along axis 1, h_{-1} = 0. a, b:
     (B, S, D) -> float32 h."""
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        raise RuntimeError("linear_scan is forward only in this port: run "
-                           "it under torch.no_grad()")
-    if kernel_mode(mode, a.device) == "cuda":
-        return _launch(a.float().contiguous(), b.float().contiguous())
-    return linear_scan_sequential(a, b)
+    return _LinearScan.apply(a, b, mode)

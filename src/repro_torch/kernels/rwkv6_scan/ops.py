@@ -1,12 +1,13 @@
-"""The WKV6 ops of the RWKV6 time mix.
+"""The WKV6 ops of the RWKV6 time mix, with the scan's backward.
 
 On a CUDA tensor ``wkv6`` launches the hand-written kernel
 (``csrc/rwkv6_scan.cu``) or raises; on a CPU tensor it runs the plain
 version (``ref.wkv6_ref``). There is no fallback from one to the other.
-The forward is all this slice needs: the op raises if a gradient is asked
-of it (the reference's backward differentiates ``wkv6_ref``; it comes with
-training). One decode step has no kernel, in the reference or here:
-``wkv6_step`` is the plain op on every device.
+The backward is the reference's: ``wkv6_ref`` recomputed under autograd
+and its vjp taken, for y and the final state, on every device. The
+kernel gives ``wkv6_ref``'s bits, so the gradients are those of autograd
+through ``wkv6_ref``. One decode step has no kernel, in the reference or
+here: ``wkv6_step`` is the plain op on every device.
 """
 from __future__ import annotations
 
@@ -79,16 +80,32 @@ def _strided(xs):
     return [x.contiguous() for x in xs]
 
 
+def _dispatch(r, k, v, w, u, mode):
+    if kernel_mode(mode, r.device) == "cuda":
+        r, k, v, w = _strided((r, k, v, w))
+        return _launch(r, k, v, w, u.float().contiguous())
+    return wkv6_ref(r, k, v, w, u)
+
+
+class _WKV6(torch.autograd.Function):
+    """The dispatched scan; its backward differentiates ``wkv6_ref``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, mode):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _dispatch(r, k, v, w, u, mode)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        ins = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, s = wkv6_ref(*ins)
+        return (*torch.autograd.grad((y, s), ins, (gy, gs)), None)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          w: torch.Tensor, u: torch.Tensor, mode: Optional[str] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6 scan from a zero state. r, k, v, w: (B, S, H, N); u: (H, N).
     Returns (y (B, S, H, N) float32, the final state (B, H, N, N))."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (r, k, v, w, u)):
-        raise RuntimeError("wkv6 is forward only in this port: run it "
-                           "under torch.no_grad()")
-    if kernel_mode(mode, r.device) == "cuda":
-        r, k, v, w = _strided((r, k, v, w))
-        return _launch(r, k, v, w, u.float().contiguous())
-    return wkv6_ref(r, k, v, w, u)
+    return _WKV6.apply(r, k, v, w, u, mode)

@@ -1,15 +1,18 @@
-"""Shared layer primitives: norms, activations, RoPE.
+"""Shared layer primitives: norms, activations, RoPE, the loss.
 
 The counterpart of ``repro.models.layers``. Every reduction that decides
-stability (the norm's mean of squares) is computed in float32 and cast
-back to the input's dtype, as in the reference. ``apply_mrope`` and
-``cross_entropy`` come with the slices that need them (the vlm family and
-training).
+stability (the norm's mean of squares, the loss's logsumexp) is computed
+in float32, as in the reference. ``apply_mrope`` comes with the vlm
+family's slice.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
+
+NEG_INF = -1e9  # the reference's additive-mask value for padded vocab
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -69,3 +72,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int, z_loss: float = 0.0,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token CE over a (possibly padded) vocab dimension.
+
+    ``logits``: (..., V_padded); ``labels``: (...) ints < vocab_size.
+    Padded vocab columns are masked before the float32 logsumexp. The
+    label's logit is a gather where the reference contracts a one-hot:
+    the same value, without another (..., V) float32 buffer (4.2 GB at
+    4096 tokens of a 256,000 vocab). Returns (mean loss, mean z-term).
+    """
+    vpad = logits.shape[-1]
+    logits = logits.float()
+    if vpad != vocab_size:
+        col = torch.arange(vpad, device=logits.device)
+        logits = torch.where(col < vocab_size, logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    nll = lse - label_logit
+    z = lse.square()
+    if mask is not None:
+        mask = mask.float()
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = (nll * mask).sum() / denom
+        zterm = (z * mask).sum() / denom
+    else:
+        loss = nll.mean()
+        zterm = z.mean()
+    return loss + z_loss * zterm, zterm

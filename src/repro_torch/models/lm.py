@@ -8,15 +8,22 @@ The counterpart of ``repro.models.lm.LMModel``:
 Parameters and caches keep the reference's layout (``core.params``): a
 homogeneous stack is stacked along a leading layer axis and a pattern's
 tail is ``tail{i}``. Where the reference scans the stack, the port walks
-it with a Python loop over views. ``prefill`` applies the head to the last
-position only. The other plans (moe, audio, vlm, MLA) raise
-``NotImplementedError``: they come with later slices of the port.
+it with a Python loop over views, one ``unbind(0)`` of each stacked leaf a
+pass (indexing ``t[i]`` per layer would make the backward write a
+full-size zero buffer for every layer of every leaf). With
+``remat="block"`` each stacked layer, or each hybrid super-block, runs
+under ``torch.utils.checkpoint`` when a gradient is being taken, as the
+reference wraps its scan body; the tail is not wrapped, as in the
+reference. ``prefill`` applies the head to the last position only.
+``loss_fn`` is the reference's. The other plans (moe, audio, vlm, MLA)
+raise ``NotImplementedError``: they come with later slices of the port.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import (ArchConfig, AttentionKind, PaddedDims,
                                      RopeKind, resolve_device)
@@ -24,7 +31,9 @@ from repro_torch.core.params import ParamDef, init_params, pdef
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.layers import cross_entropy, rms_norm, swiglu
+
+REMAT = ("none", "block")
 
 
 def _stack_schema(schema: Dict[str, Any], n: int) -> Dict[str, Any]:
@@ -39,10 +48,15 @@ def _stack_schema(schema: Dict[str, Any], n: int) -> Dict[str, Any]:
     return out
 
 
-def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of a stacked tree, as views."""
-    return {k: (v[i] if isinstance(v, torch.Tensor) else _index(v, i))
-            for k, v in tree.items()}
+def _unstack(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The ``n`` layers of a stacked tree, as views: one ``unbind(0)`` of
+    each leaf, whose backward stacks the layers' grads once."""
+    layers: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = v.unbind(0) if isinstance(v, torch.Tensor) else _unstack(v, n)
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
 
 
 def _restack(per_layer: List[Dict[str, torch.Tensor]],
@@ -87,10 +101,13 @@ class LMModel:
 
     ``device`` is where ``init_params`` and ``init_cache`` put their
     tensors: the CUDA device unless ``device="cpu"`` (raises without a
-    GPU). ``kernel_mode`` is passed to the kernels' dispatch."""
+    GPU). ``kernel_mode`` is passed to the kernels' dispatch; ``remat``
+    ("none" | "block") whether a pass that takes a gradient recomputes
+    each stacked layer (super-block) in the backward."""
 
     def __init__(self, arch: ArchConfig, *,
                  kernel_mode: Optional[str] = None,
+                 remat: str = "block",
                  cache_dtype: torch.dtype = torch.bfloat16,
                  device: Union[None, str, torch.device] = None):
         missing = _unsupported(arch)
@@ -98,7 +115,10 @@ class LMModel:
             raise NotImplementedError(
                 f"{arch.name}: {missing} comes with a later slice of the "
                 "port; this one runs the hybrid, dense and rwkv plans")
+        if remat not in REMAT:
+            raise ValueError(f"remat {remat!r} not in {REMAT}")
         self.arch = arch
+        self.remat = remat
         self.padded = PaddedDims.for_tp(arch, 1)
         self.kernel_mode = kernel_mode
         self.cache_dtype = cache_dtype
@@ -154,21 +174,33 @@ class LMModel:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_params(self.schema(), gen, dtype, self.device)
 
+    def _units(self, tree: Dict[str, Any]
+               ) -> Iterator[Tuple[bool, List[Tuple[str, str, int,
+                                                   Dict[str, Any]]]]]:
+        """The layers of a parameter or cache tree in execution order, in
+        units: (stacked, [(kind, key, layer index in the stack or -1,
+        layer view)]). A unit is a super-block of the hybrid pattern or
+        one layer of a homogeneous stack (stacked), or one tail layer."""
+        plan = self.plan
+        if plan["kind"] == "hybrid":
+            pattern = list(enumerate(plan["pattern"]))
+            subs = {f"sub{i}": _unstack(tree["blocks"][f"sub{i}"],
+                                        plan["n_super"]) for i, _ in pattern}
+            for s in range(plan["n_super"]):
+                yield True, [(kind, f"sub{i}", s, subs[f"sub{i}"][s])
+                             for i, kind in pattern]
+            for i, kind in enumerate(plan["tail"]):
+                yield False, [(kind, f"tail{i}", -1, tree[f"tail{i}"])]
+        else:
+            for s, layer in enumerate(_unstack(tree["blocks"], plan["n"])):
+                yield True, [(plan["kind"], "", s, layer)]
+
     def _walk(self, tree: Dict[str, Any]
               ) -> Iterator[Tuple[str, str, int, Dict[str, Any]]]:
         """(kind, key, layer index in the stack or -1, layer view) of every
         layer in execution order, for a parameter or cache tree."""
-        plan = self.plan
-        if plan["kind"] == "hybrid":
-            for s in range(plan["n_super"]):
-                for i, kind in enumerate(plan["pattern"]):
-                    key = f"sub{i}"
-                    yield kind, key, s, _index(tree["blocks"][key], s)
-            for i, kind in enumerate(plan["tail"]):
-                yield kind, f"tail{i}", -1, tree[f"tail{i}"]
-        else:
-            for s in range(plan["n"]):
-                yield plan["kind"], "", s, _index(tree["blocks"], s)
+        for _, layers in self._units(tree):
+            yield from layers
 
     # ------------------------------------------------------------------
     # full sequence
@@ -210,12 +242,25 @@ class LMModel:
             return torch.einsum("bsd,vd->bsv", x, params["embed"])
         return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
+    def _unit_fwd(self, kinds: Tuple[str, ...], ps: List[Dict[str, Any]],
+                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        for kind, p in zip(kinds, ps):
+            x = self._block_fwd(kind, p, x, positions)
+        return x
+
     def _hidden(self, params: Dict[str, Any],
                 batch: Dict[str, Any]) -> torch.Tensor:
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
-        for kind, _, _, p in self._walk(params):
-            x = self._block_fwd(kind, p, x, positions)
+        remat = self.remat == "block" and torch.is_grad_enabled()
+        for stacked, layers in self._units(params):
+            kinds = tuple(kind for kind, _, _, _ in layers)
+            ps = [p for _, _, _, p in layers]
+            if stacked and remat:
+                x = checkpoint(self._unit_fwd, kinds, ps, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._unit_fwd(kinds, ps, x, positions)
         return x
 
     def forward(self, params: Dict[str, Any], batch: Dict[str, Any]
@@ -224,6 +269,16 @@ class LMModel:
         x = self._hidden(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._head(params, x), x, aux
+
+    def loss_fn(self, params: Dict[str, Any], batch: Dict[str, Any],
+                z_loss: float = 0.0
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, {"ce", "aux", "z"}) of next-token prediction on
+        batch["tokens"] against batch["labels"]."""
+        logits, _, aux = self.forward(params, batch)
+        loss, z = cross_entropy(logits, batch["labels"],
+                                self.arch.vocab_size, z_loss)
+        return loss + aux, {"ce": loss, "aux": aux, "z": z}
 
     def prefill(self, params: Dict[str, Any], batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -156,12 +156,18 @@ def test_wkv6_cuda_mode_on_a_cpu_tensor_raises():
 
 
 def test_wkv6_refuses_a_gradient():
-    r, k, v, w, u = (t(a) for a in scan_inputs((1, 4, 1, 16), 0))
-    r.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        wkv6(r, k, v, w, u)
+    """The name is kept from when the op refused a gradient; the test now
+    checks the opposite, that the gradient flows: the op's backward is
+    autograd through ``wkv6_ref``, so the gradient is that one's bit for
+    bit."""
+    ins = [t(a).requires_grad_(True) for a in scan_inputs((1, 4, 1, 16), 0)]
+    y, s = wkv6(*ins)
+    got = torch.autograd.grad((y * 1.5).sum() + s.square().sum(), ins)
+    y, s = wkv6_ref(*ins)
+    want = torch.autograd.grad((y * 1.5).sum() + s.square().sum(), ins)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     with torch.no_grad():
-        wkv6(r, k, v, w, u)
+        wkv6(*ins)
 
 
 # ---------------------------------------------------------------------------
