@@ -93,7 +93,25 @@ points:
     forward+backward and optimizer, tokens/s, peak memory and idle share;
     rwkv6-7b at full width cut to 2 layers, one loss and backward with
     the ``wkv6`` kernel against the plain forward; and the
-    checkpoint/restart drill of reduced recurrentgemma-2b on the card.
+    checkpoint/restart drill of reduced recurrentgemma-2b on the card;
+  * phi3.5-moe at full width (d_model 4096, 16 experts top-2 of 6400),
+    depth cut to 12 of 32 layers (15.9B fp32 parameters): one 2 x 4096
+    prefill (12 ``flash_attention`` launches, expert ids and dropped
+    assignments recorded per layer), the kernel against its plain version
+    at the prefill's own q/k/v, logits against the plain path and 64
+    decode steps against the forward (at capacity factor 8, where nothing
+    drops) under the flip rule (a token the two paths route to other
+    experts, and what it reaches, is not held; flips are printed), 32
+    requests through ``launch.serve.serve`` with the cut config, the
+    expert-parallel dispatch (``moe.moe_forward_sharded``) on 8 virtual
+    shards against ``moe_forward`` on one layer, and one loss and
+    backward at 2 layers;
+  * qwen2-vl-2b (1,024 patch embeddings with 3-D M-RoPE positions and
+    3,072 text tokens) and musicgen-large (frame embeddings, 4 codebook
+    heads) at full width and depth: a 2 x 4096 prefill each (28 and 48
+    ``flash_attention`` launches), the kernel at that prefill's inputs,
+    logits against the plain path, 64 decode steps against the forward,
+    and 8 musicgen requests served (its waves feed codes).
 
 The kernel launch counts are zeroed just before each path and read just
 after it; a kernel of a path that never launched fails the run. It also
@@ -103,9 +121,9 @@ peak memory per phase. Any failed phase exits non-zero. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
 
-The last lines of standard output are the training step's numbers, the
-calibration report, the kernels' JSON record, the card's name and power
-limit, and
+The last lines of standard output are the MoE phase's numbers, the
+training step's numbers, the calibration report, the kernels' JSON
+record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2469,45 +2487,276 @@ def device_breakdown(fn):
                 device_ops=ops, device_ms_by_kind=kinds)
 
 
-def lm_prefill_checks(model, plain, params, batch, logits, label):
+# The routing-flip rule's ceiling (an MoE model): two paths whose round-off
+# differs may route a token whose 2nd and 3rd expert probabilities nearly
+# tie to other experts, which changes it, and what follows it, by O(1). A
+# check holds the positions before the first flip; it fails beyond
+# MAX_FLIPS flips, or when a sequence is held at fewer than MIN_HELD of its
+# positions.
+MAX_FLIPS, MIN_HELD = 2, 0.5
+
+
+def expert_ids(x, router, k):
+    """Each token's top-k expert ids, ascending, from the layer's input
+    and router (x (..., d) -> (..., k))."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    return moe_mod.top_k(probs, k)[1].sort(dim=-1).values
+
+
+@contextlib.contextmanager
+def record_routing(store, keep_input=False):
+    """Wrap ``moe.moe_forward`` (here, never in the package) to record,
+    for each call, the tokens' expert ids (B, S, k) recomputed from the
+    layer's input and router, the capacity and the assignments the call
+    drops (and, with ``keep_input``, the first call's input)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    orig = moe_mod.moe_forward
+
+    def wrapper(p, x, arch, *, capacity=None):
+        m = arch.moe
+        T = x.shape[0] * x.shape[1]
+        C = capacity or moe_mod._capacity(T, m)
+        with torch.no_grad():
+            ids = expert_ids(x, p["router"], m.top_k)
+            counts = torch.bincount(ids.reshape(-1), minlength=m.n_experts)
+            dropped = int(torch.clamp(counts - C, min=0).sum())
+        rec = dict(ids=ids, capacity=C, dropped=dropped)
+        if keep_input and not store:
+            rec["x"] = x.detach().clone()
+        store.append(rec)
+        return orig(p, x, arch, capacity=capacity)
+
+    moe_mod.moe_forward = wrapper
+    try:
+        yield
+    finally:
+        moe_mod.moe_forward = orig
+
+
+def routing_flips(a, b):
+    """(layer, sequence, position) of every token that two recorded runs
+    of the same layers route to other experts."""
+    import torch
+    flips = []
+    for layer, (ra, rb) in enumerate(zip(a, b)):
+        diff = (ra["ids"] != rb["ids"]).any(dim=-1)
+        flips += [(layer, s, t) for s, t in torch.nonzero(diff).tolist()]
+    return sorted(flips, key=lambda f: (f[1], f[2], f[0]))
+
+
+def first_flip(flips, B, S):
+    """Per sequence, the first flipped position (S where none)."""
+    first = [S] * B
+    for _, s, t in flips:
+        first[s] = min(first[s], t)
+    return first
+
+
+def flip_gate(flips, shares, label):
+    """Raise beyond MAX_FLIPS routing flips, or when a share of positions
+    held (one per sequence, or the share of tokens kept) is below
+    MIN_HELD."""
+    if len(flips) > MAX_FLIPS or min(shares) < MIN_HELD:
+        raise AssertionError(f"{label}: {len(flips)} routing flips (at most "
+                             f"{MAX_FLIPS}) {flips[:20]}, share of positions "
+                             f"held {shares} (at least {MIN_HELD} each)")
+
+
+def prefill_main_path(model, params, batch, label, want, spies):
+    """The main path: one prefill, launch counts read around it, the first
+    call of each (module, name) in ``spies`` captured. Raises unless the
+    kernels launched are ``want`` ({kernel: launches}) and the logits have
+    the last-token shape. Run under torch.no_grad(). Returns (logits,
+    launches, [the captured call of each spy])."""
+    import torch
+    from repro_torch.kernels import common
+    stores = [[] for _ in spies]
+    with contextlib.ExitStack() as stack:
+        for (module, name), store in zip(spies, stores):
+            stack.enter_context(capture(module, name, store, keep=1))
+        torch.cuda.synchronize()
+        common.reset_launches()                 # just before the path
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = dict(common.LAUNCHES)        # just after it
+    log(f"{label} prefill B={LM_B} S={LM_S}: first run "
+        f"{time.perf_counter() - t0:.3f} s, launches {launches}")
+    launched = {n: c for n, c in launches.items() if c}
+    if launched != want:
+        raise AssertionError(f"{label} prefill launched {launched}, want "
+                             f"{want}")
+    codebooks = (model.arch.n_codebooks,) if model.arch.n_codebooks else ()
+    if logits.shape != (LM_B, 1) + codebooks + (model.padded.vocab_size,):
+        raise AssertionError(f"{label} prefill logits shape "
+                             f"{tuple(logits.shape)}")
+    return logits, launches, [store[0] for store in stores]
+
+
+def attention_record(q, k, v, label, scale, window=None):
+    """The flash kernel at a prefill's own (causal) inputs: against its
+    plain version, its time, its plain version's, SDPA's (fp32,
+    ``enable_gqa``, the window as a mask) and the bound. Returns the
+    shape's record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_chunked
+    _, err = check_attention(q, k, v, label, window=window, scale=scale)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    ms = cuda_ms(lambda: flash_attention(q, k, v, window=window, scale=scale,
+                                         mode="cuda"), reps=10)
+    plain_ms = cuda_ms(lambda: attention_chunked(q, k, v, window=window,
+                                                 scale=scale), reps=2)
+    if window is None:
+        mask_kw = dict(is_causal=True)
+    else:
+        pos = torch.arange(Sq, device=q.device)
+        mask_kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                       & (pos[None, :] > pos[:, None] - window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                          enable_gqa=True, **mask_kw)
+    sdpa_err = float((sdpa.transpose(1, 2) - attention_chunked(
+        q, k, v, window=window, scale=scale)).abs().max())
+    del sdpa
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, scale=scale, enable_gqa=True, **mask_kw), reps=3)
+    pairs = attention_pairs(Sq, Skv, 0, window) * B * Hq
+    bound, by = bound_ms(4 * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D),
+                         4.0 * D * pairs)
+    rec = dict(shape=f"{label}: q ({B}, {Sq}, {Hq}, {D}), k/v ({B}, {Skv}, "
+               f"{Hkv}, {D}) f32, causal, window {window}; {pairs} visible "
+               f"pairs", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by, library_ms=lib_ms,
+               library_max_abs_err=sdpa_err)
+    log(f"flash_attention timing {json.dumps(rec)}")
+    return rec
+
+
+def lm_prefill_checks(model, plain, params, batch, logits, label,
+                      routed=None):
     """Prefill logits with the kernels against the plain versions'
     prefill, then the warm prefill's time, peak memory and device time by
-    kind. Run under torch.no_grad()."""
+    kind. With ``routed`` (an MoE model: the expert ids recorded in the
+    kernels' prefill), under the flip rule: a token the two paths route to
+    other experts changes by O(1), and through attention every later
+    position of its sequence, and through the capacity drops every later
+    token in the batch's flat order. So the last layer's output is held at
+    the positions before the first flip in the flat order, and a
+    sequence's last-token logits when no position of it is past that
+    flip. Run under torch.no_grad(). Returns the prefill's numbers."""
     import torch
-    want, _ = plain.prefill(params, batch)
-    err, rel = held(logits, want, PREFILL_TOL, f"{label} prefill logits")
-    log(f"{label} prefill logits, kernels vs plain: max_abs_err {err!r}, "
-        f"limit share {rel!r} (|logit| up to {float(want.abs().max())!r})")
+    B = logits.shape[0]
+    numbers = {}
+    if routed is None:
+        want, _ = plain.prefill(params, batch)
+        shares = [1.0] * B
+    else:
+        plain_routed = []
+        with record_routing(plain_routed):
+            want_hidden, _ = plain._hidden(params, batch)
+        want = plain._head(params, want_hidden[:, -1:])
+        S = routed[0]["ids"].shape[1]
+        flips = routing_flips(routed, plain_routed)
+        first_flat = min((s * S + t for _, s, t in flips), default=B * S)
+        n_held = [min(max(first_flat - s * S, 0), S) for s in range(B)]
+        shares = [n / S for n in n_held]
+        dropped = [r["dropped"] for r in routed]
+        log(f"{label} prefill routing at capacity {routed[0]['capacity']} a "
+            f"layer: dropped assignments per layer {dropped} (plain path "
+            f"{[r['dropped'] for r in plain_routed]}); kernels vs plain: "
+            f"{len(flips)} routing flips (layer, sequence, position) "
+            f"{flips[:20]}")
+        flip_gate(flips, shares, f"{label} prefill")
+        got_hidden, _ = model._hidden(params, batch)
+        for s in range(B):
+            err, rel = held(got_hidden[s, :n_held[s]],
+                            want_hidden[s, :n_held[s]], PREFILL_TOL,
+                            f"{label} prefill last layer's output, sequence "
+                            f"{s}")
+            log(f"{label} prefill last layer's output, sequence {s}, kernels "
+                f"vs plain: max_abs_err {err!r}, limit share {rel!r}, "
+                f"positions held {shares[s]!r}")
+        del got_hidden, want_hidden
+        numbers.update(prefill_flips=flips, prefill_dropped_per_layer=dropped,
+                       prefill_held_share=shares)
+    for s in range(B):
+        if shares[s] < 1.0:
+            log(f"{label} prefill logits, sequence {s}, not held: a routing "
+                f"flip at or before its last position in the flat order")
+            continue
+        err, rel = held(logits[s], want[s], PREFILL_TOL,
+                        f"{label} prefill logits, sequence {s}")
+        log(f"{label} prefill logits, sequence {s}, kernels vs plain: "
+            f"max_abs_err {err!r}, limit share {rel!r}, positions held "
+            f"{shares[s]!r} (|logit| up to {float(want[s].abs().max())!r})")
     del want
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: model.prefill(params, batch), reps=WARM_REPS,
                  warmup=1)
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{label} prefill warm: {ms!r} ms per prefill of {LM_B}x{LM_S} "
         f"tokens ({LM_B * LM_S / ms * 1e3:.1f} tokens/s), peak "
-        f"{peak / 2**30:.3f} GiB")
-    log(f"{label} prefill device time: " + json.dumps(device_breakdown(
-        lambda: model.prefill(params, batch))))
+        f"{peak:.3f} GiB")
+    breakdown = device_breakdown(lambda: model.prefill(params, batch))
+    log(f"{label} prefill device time: " + json.dumps(breakdown))
+    numbers.update(prefill_ms=ms, prefill_peak_gib=peak,
+                   prefill_device=breakdown)
+    return numbers
 
 
-def lm_decode_vs_forward(arch, params, tokens, dev, label):
+def decode_vs_forward(arch, params, seq, key, dev, label, routed=False):
     """LM_DECODE decode steps with a float32 cache against the forward
-    pass over the same tokens. Run under torch.no_grad()."""
+    pass over the same inputs: ``seq`` (B, S, ...) is the batch's ``key``
+    ("tokens" or "embeds"), cut to LM_DECODE positions, and step t decodes
+    its position t. With ``routed`` (an MoE model, run at its no-drop
+    capacity) a sequence is held at the steps before its first routing
+    flip between the two. Run under torch.no_grad(). Returns the flips."""
     import torch
     from repro_torch.models.lm import LMModel
     m32 = LMModel(arch, device=dev, cache_dtype=torch.float32)
-    toks = tokens[:, :LM_DECODE]
-    full, _, _ = m32.forward(params, {"tokens": toks})
+    fwd, dec = [], []
+    with record_routing(fwd) if routed else contextlib.nullcontext():
+        full, _, _ = m32.forward(params, {key: seq[:, :LM_DECODE]})
     cache = m32.init_cache(LM_B, LM_DECODE + 1)
+    steps = []
+    with record_routing(dec) if routed else contextlib.nullcontext():
+        for t in range(LM_DECODE):
+            step, cache = m32.decode_step(params, cache,
+                                          {key: seq[:, t:t + 1]})
+            steps.append(step[:, 0])
+    first, flips = [LM_DECODE] * LM_B, []
+    if routed:
+        n = len(fwd)
+        per_layer = [dict(ids=torch.cat([dec[t * n + i]["ids"]
+                                         for t in range(LM_DECODE)], dim=1))
+                     for i in range(n)]
+        flips = routing_flips(fwd, per_layer)
+        first = first_flip(flips, LM_B, LM_DECODE)
+        log(f"{label} decode vs forward at capacity factor "
+            f"{arch.moe.capacity_factor} (no drops: forward capacity "
+            f"{fwd[0]['capacity']}, dropped {sum(r['dropped'] for r in fwd)}"
+            f"; decode {sum(r['dropped'] for r in dec)}): {len(flips)} "
+            f"routing flips {flips[:20]}")
+    shares = [f / LM_DECODE for f in first]
+    flip_gate(flips, shares, f"{label} decode vs forward")
     worst = 0.0
     for t in range(LM_DECODE):
-        step, cache = m32.decode_step(params, cache,
-                                      {"tokens": toks[:, t:t + 1]})
-        worst = max(worst, held(step[:, 0], full[:, t], DECODE_TOL,
-                                f"{label} decode step {t} vs forward")[0])
+        for s in range(LM_B):
+            if t < first[s]:
+                worst = max(worst, held(
+                    steps[t][s], full[s, t], DECODE_TOL,
+                    f"{label} decode step {t} sequence {s} vs forward")[0])
     log(f"{label} decode vs forward: {LM_DECODE} steps, B={LM_B}, float32 "
-        f"cache: max_abs_err {worst!r} (limit {DECODE_TOL})")
+        f"cache: max_abs_err {worst!r} (limit {DECODE_TOL}), positions held "
+        f"{shares}")
+    return flips
 
 
 def _leaves(tree):
@@ -2515,11 +2764,13 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def lm_serving(argv, label):
+def lm_serving(argv, label, arch=None):
     """Serve through the launcher's entry function (its own seeded
-    weights), launch counts read around it (decode runs no kernel): every
-    request must complete with ``max_new`` tokens and the cache stay
-    finite. Then one warm wave's time and device time, and the peak."""
+    weights; ``arch``, a depth-cut config, in place of the named one),
+    launch counts read around it (decode runs no kernel): every request
+    must complete with ``max_new`` tokens and the cache stay finite. Then
+    one warm wave's time and device time, and the peak. Returns the warm
+    wave's ms and its device breakdown."""
     import gc
     import torch
     from repro_torch.kernels import common
@@ -2528,7 +2779,7 @@ def lm_serving(argv, label):
     torch.cuda.synchronize()
     common.reset_launches()
     t0 = time.perf_counter()
-    stats, batcher = serve_mod.serve(args)
+    stats, batcher = serve_mod.serve(args, arch=arch)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     serve_launches = dict(common.LAUNCHES)
@@ -2543,12 +2794,12 @@ def lm_serving(argv, label):
 
     def wave():
         return batcher.model.decode_step(batcher.params, batcher.cache,
-                                         {"tokens": batcher._tokens})
+                                         batcher._wave)
 
     with torch.no_grad():
         wave_ms = cuda_ms(wave, reps=10)
-        log(f"{label} decode wave device time: " + json.dumps(
-            device_breakdown(wave)))
+        wave_device = device_breakdown(wave)
+        log(f"{label} decode wave device time: " + json.dumps(wave_device))
     log(f"{label} serving: {serve_s:.3f} s for {stats['steps']} waves "
         f"({serve_s / stats['steps'] * 1e3:.3f} ms per wave with weight "
         f"init and admission), warm decode wave (B={args.wave_slots}) "
@@ -2556,7 +2807,7 @@ def lm_serving(argv, label):
     del batcher, wave
     gc.collect()
     torch.cuda.empty_cache()
-    peak_line(f"{label} serving")
+    return wave_ms, wave_device, peak_line(f"{label} serving")
 
 
 def lm_phase(dev):
@@ -2568,12 +2819,8 @@ def lm_phase(dev):
     kernels' times. Returns the kernels' records."""
     import gc
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.core.params import param_count
-    from repro_torch.kernels import common
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_chunked
     from repro_torch.kernels.rglru_scan.ops import linear_scan
     from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
     from repro_torch.models import attention as attn_mod
@@ -2606,86 +2853,38 @@ def lm_phase(dev):
                            dtype=torch.int32, generator=gen)
     batch = {"tokens": tokens}
 
-    # the main path: one prefill, launch counts read around it
-    fa_calls, scan_calls = [], []
-    with torch.no_grad(), capture(attn_mod, "flash_attention", fa_calls), \
-            capture(rglru_mod, "linear_scan", scan_calls):
-        torch.cuda.synchronize()
-        common.reset_launches()                 # just before the path
-        t0 = time.perf_counter()
-        logits, _ = model.prefill(params, batch)
-        torch.cuda.synchronize()
-        launches = dict(common.LAUNCHES)        # just after it
-    first_s = time.perf_counter() - t0
-    log(f"LM prefill B={LM_B} S={LM_S}: first run {first_s:.3f} s, "
-        f"launches {launches}")
-    if (launches["flash_attention"], launches["rglru_scan"]) != (n_attn,
-                                                                n_rglru):
-        raise AssertionError(f"prefill launched flash_attention "
-                             f"{launches['flash_attention']} and rglru_scan "
-                             f"{launches['rglru_scan']} times, want "
-                             f"{n_attn} and {n_rglru}")
-    if logits.shape != (LM_B, 1, model.padded.vocab_size):
-        raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
-
-    # each kernel against its plain version at the prefill's own inputs
-    (q, k, v), fa_kw = fa_calls[0][0], fa_calls[0][1]
-    a, b = scan_calls[0][0][:2]
-    a, b = a.float().contiguous(), b.float().contiguous()
-    del fa_calls[1:], scan_calls[1:]
     with torch.no_grad():
-        _, fa_err = check_attention(q, k, v, "prefill inputs (layer 3)",
-                                    window=fa_kw["window"],
-                                    scale=fa_kw["scale"])
+        logits, launches, (fa_call, scan_call) = prefill_main_path(
+            model, params, batch, "LM",
+            {"flash_attention": n_attn, "rglru_scan": n_rglru},
+            [(attn_mod, "flash_attention"), (rglru_mod, "linear_scan")])
+
+    # each kernel against its plain version at the prefill's own inputs,
+    # with its times there
+    (q, k, v), fa_kw = fa_call
+    a, b = scan_call[0][:2]
+    a, b = a.float().contiguous(), b.float().contiguous()
+    del fa_call, scan_call
+    with torch.no_grad():
+        fa_rec = attention_record(q, k, v, f"{LM_ARCH} prefill (layer 3)",
+                                  fa_kw["scale"], window=fa_kw["window"])
+        del q, k, v
         scan_err = check_scan(a, b, "prefill inputs (layer 1)")
         lm_kernel_edges(dev)
 
         lm_prefill_checks(model, plain, params, batch, logits, "LM")
-        lm_decode_vs_forward(arch, params, tokens, dev, "LM")
+        decode_vs_forward(arch, params, tokens, "tokens", dev, "LM")
 
-    # the kernels' times at the prefill shape
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    window, scale = fa_kw["window"], fa_kw["scale"]
-    with torch.no_grad():
-        fa_ms = cuda_ms(lambda: flash_attention(q, k, v, window=window,
-                                                scale=scale, mode="cuda"),
-                        reps=10)
-        fa_plain = cuda_ms(lambda: attention_chunked(q, k, v, window=window,
-                                                     scale=scale), reps=2)
-        pos = torch.arange(Sq, device=dev)
-        mask = (pos[None, :] <= pos[:, None]) & \
-            (pos[None, :] > pos[:, None] - window)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              scale=scale, enable_gqa=True)
-        sdpa_err = float((sdpa.transpose(1, 2) - attention_chunked(
-            q, k, v, window=window, scale=scale)).abs().max())
-        del sdpa
-        fa_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True),
-            reps=3)
-        pairs = attention_pairs(Sq, Skv, 0, window) * B * Hq
-        fa_bound, fa_by = bound_ms(4 * (2 * B * Sq * Hq * D
-                                        + 2 * B * Skv * Hkv * D),
-                                   4.0 * D * pairs)
         sc_ms = cuda_ms(lambda: linear_scan(a, b, mode="cuda"), reps=20)
         sc_device = device_ms(lambda: linear_scan(a, b, mode="cuda"),
                               reps=20)
         sc_plain = cuda_ms(lambda: linear_scan_sequential(a, b), reps=2)
         sc_bound, sc_by = bound_ms(3 * 4 * a.numel(), 2.0 * a.numel())
-    fa_time = dict(shape=f"prefill local attention: q ({B}, {Sq}, {Hq}, "
-                   f"{D}), k/v ({B}, {Skv}, {Hkv}, {D}) f32, window "
-                   f"{window}; {pairs} visible pairs", ms=fa_ms,
-                   plain_ms=fa_plain, bound_ms=fa_bound, bound_by=fa_by,
-                   library_ms=fa_lib, library_max_abs_err=sdpa_err)
     sc_time = dict(shape=f"prefill RG-LRU scan: a/b {tuple(a.shape)} f32",
                    ms=sc_ms, device_ms=sc_device, plain_ms=sc_plain,
                    bound_ms=sc_bound, bound_by=sc_by, library_ms=None)
-    log(f"flash_attention timing {json.dumps(fa_time)}")
     log(f"rglru_scan timing {json.dumps(sc_time)}")
-    del q, k, v, a, b, qt, kt, vt, mask, fa_calls, scan_calls
-    del params, plain, model
+    del a, b, params, plain, model, logits
     gc.collect()
     torch.cuda.empty_cache()
     peak_line("LM prefill, kernels, decode vs forward")
@@ -2694,8 +2893,7 @@ def lm_phase(dev):
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:89",
-             launches=launches["flash_attention"], max_abs_err=fa_err,
-             **fa_time),
+             launches=launches["flash_attention"], **fa_rec),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan/kernel.py:52",
@@ -2785,7 +2983,6 @@ def rwkv_phase(dev):
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.params import param_count
-    from repro_torch.kernels import common
     from repro_torch.kernels.rwkv6_scan import wkv6
     from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
     from repro_torch.models import rwkv6 as rwkv_mod
@@ -2813,31 +3010,18 @@ def rwkv_phase(dev):
                            dtype=torch.int32, generator=gen)
     batch = {"tokens": tokens}
 
-    # the main path: one prefill, launch counts read around it
-    calls = []
-    with torch.no_grad(), capture(rwkv_mod, "wkv6", calls, keep=1):
-        torch.cuda.synchronize()
-        common.reset_launches()                 # just before the path
-        t0 = time.perf_counter()
-        logits, _ = model.prefill(params, batch)
-        torch.cuda.synchronize()
-        launches = dict(common.LAUNCHES)        # just after it
-    log(f"RWKV prefill B={LM_B} S={LM_S}: first run "
-        f"{time.perf_counter() - t0:.3f} s, launches {launches}")
-    others = {n: c for n, c in launches.items() if n != "wkv6" and c}
-    if launches["wkv6"] != n_layers or others:
-        raise AssertionError(f"prefill launched wkv6 {launches['wkv6']} "
-                             f"times (want {n_layers}) and {others}")
-    if logits.shape != (LM_B, 1, model.padded.vocab_size):
-        raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+    with torch.no_grad():
+        logits, launches, (call,) = prefill_main_path(
+            model, params, batch, "RWKV", {"wkv6": n_layers},
+            [(rwkv_mod, "wkv6")])
 
-    r, k, v, w, u = calls[0][0][:5]
+    r, k, v, w, u = call[0][:5]
     with torch.no_grad():
         wkv_err = check_wkv6(r, k, v, w, u, "prefill inputs (layer 0)")
         wkv6_edges(dev)
 
         lm_prefill_checks(model, plain, params, batch, logits, "RWKV")
-        lm_decode_vs_forward(arch, params, tokens, dev, "RWKV")
+        decode_vs_forward(arch, params, tokens, "tokens", dev, "RWKV")
 
         # the kernel's times at the prefill shape
         B, S, H, N = r.shape
@@ -2851,7 +3035,7 @@ def rwkv_phase(dev):
                     plain_ms=wkv_plain, bound_ms=wkv_bound, bound_by=wkv_by,
                     library_ms=None)
     log(f"wkv6 timing {json.dumps(wkv_time)}")
-    del r, k, v, w, u, calls, params, plain, model, logits
+    del r, k, v, w, u, call, params, plain, model, logits
     gc.collect()
     torch.cuda.empty_cache()
     peak_line("RWKV prefill, kernel, decode vs forward")
@@ -3027,11 +3211,16 @@ def loss_and_grad_norm(model, params, batch, hidden):
             float(adamw.global_norm(dict(enumerate(grads)))))
 
 
-def kernels_vs_plain_step(model, plain, params, batch, label):
+def kernels_vs_plain_step(model, plain, params, batch, label,
+                          flip_at=None):
     """Step A: one loss and backward with the kernels and with the plain
     versions on the same params and batch; the loss and the global grad
-    norm held within TRAIN_LOSS_TOL and TRAIN_NORM_TOL. Returns the
-    kernels' launches in the kernels' pass."""
+    norm held within TRAIN_LOSS_TOL and TRAIN_NORM_TOL. Where the two
+    passes route a token to other experts (an MoE model; ``flip_at``, the
+    first such position of the batch's one sequence), the loss and norm
+    cannot be held: the last layer's output before that position is held
+    within PREFILL_TOL instead. Returns the kernels' launches in the
+    kernels' pass."""
     from repro_torch.kernels import common
     before = dict(common.LAUNCHES)
     hidden = []
@@ -3051,7 +3240,15 @@ def kernels_vs_plain_step(model, plain, params, batch, label):
         f"(rel {norm_rel!r}), last layer's output max_abs_err {h_err!r} "
         f"(|value| up to {float(hidden[1].abs().max())!r}); {k_s:.3f} s / "
         f"{p_s:.3f} s; kernels' launches {launched}")
-    if not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_NORM_TOL):
+    if flip_at is not None:
+        err, rel = held(hidden[0][:, :flip_at], hidden[1][:, :flip_at],
+                        PREFILL_TOL, f"{label} last layer's output before "
+                        f"the routing flip at {flip_at}")
+        log(f"{label}: a routing flip at position {flip_at}: the last "
+            f"layer's output before it held, max_abs_err {err!r}, limit "
+            f"share {rel!r}, positions held "
+            f"{flip_at / hidden[1].shape[1]!r}; loss and grad norm not held")
+    elif not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_NORM_TOL):
         raise AssertionError(f"{label}: kernels and plain versions part: "
                              f"loss rel {loss_rel!r} (limit "
                              f"{TRAIN_LOSS_TOL}), grad norm rel "
@@ -3350,13 +3547,337 @@ def train_phase(dev):
     return per_step, times, errs, numbers
 
 
-def peak_line(label: str) -> None:
-    """Print the phase's peak device memory and reset the counter."""
+# ---------------------------------------------------------------------------
+# phase 11: phi3.5-moe served at full width, its expert-parallel dispatch
+# ---------------------------------------------------------------------------
+MOE_ARCH = "phi3.5-moe"
+# 12 of 32 layers: 15.9B fp32 parameters, 59.1 GiB (32 layers are 167 GB
+# in fp32 and 84 GB in bf16; neither fits one 80 GB card)
+MOE_LAYERS = 12
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--requests", "32", "--wave-slots",
+                  "8", "--max-new", "16", "--seed", str(SEED)]
+MOE_PEAK_GIB = 76.0                       # the card's 80 GB, less headroom
+# the expert-parallel check: one layer, 1 x 4096 tokens on 8 virtual
+# shards (2 experts a shard) at capacity factor 8, where neither path
+# drops (the sharded cap is T_loc * K); held within 1e-5 of the largest
+# |output|
+MOE_EP_SHARDS, MOE_EP_FACTOR, MOE_EP_TOL = 8, 8.0, 1e-5
+MOE_TRAIN_LAYERS, MOE_TRAIN_S = 2, 512    # of 32; 1 x 512 tokens
+
+
+def with_capacity(arch, factor):
+    import dataclasses
+    return dataclasses.replace(arch, moe=dataclasses.replace(
+        arch.moe, capacity_factor=factor))
+
+
+def no_drop(arch):
+    """The arch at capacity factor n_experts / top_k, where C >= T: the
+    decode checks' capacity (at the published 1.25 a forward drops
+    assignments that decode never drops)."""
+    return with_capacity(arch, arch.moe.n_experts / arch.moe.top_k)
+
+
+def moe_ep_check(dev, arch, x):
+    """``moe_forward_sharded`` on 8 virtual shards (2 experts a shard)
+    against ``moe_forward`` on the same full-width layer (seeded) and
+    tokens x (1, S, d), at a capacity where neither drops, under the flip
+    rule: a shard routes its 512 rows with the router's product over
+    those rows, whose bits need not be the product's over all rows, so a
+    token the two route to other experts is left out of the comparison."""
+    import torch
+    from repro_torch.core.params import init_params
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.models import moe as moe_mod
+    n = MOE_EP_SHARDS
+    arch = with_capacity(arch, MOE_EP_FACTOR)
+    m = arch.moe
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    p = init_params(moe_mod.moe_schema(arch), gen, torch.float32, dev)
+    _, S, d = x.shape
+    el, sl = m.n_experts // n, S // n
+    inputs = [({"router": p["router"],
+                **{k: p[k][i * el:(i + 1) * el]
+                   for k in ("w_gate", "w_up", "w_down")}},
+               x[:, i * sl:(i + 1) * sl]) for i in range(n)]
+    mesh = VirtualMesh(n, dev)
+
+    def sharded():
+        return mesh.run(lambda comm, a: moe_mod.moe_forward_sharded(
+            comm, a[0], a[1], arch), inputs)
+
+    with torch.no_grad():
+        want, want_aux = moe_mod.moe_forward(p, x, arch)
+        outs = sharded()
+        got = torch.cat([y for y, _ in outs], dim=1)
+        ids_full = expert_ids(x[0], p["router"], m.top_k)
+        ids_shard = torch.cat([expert_ids(x[0, i * sl:(i + 1) * sl],
+                                          p["router"], m.top_k)
+                               for i in range(n)])
+        flipped = (ids_full != ids_shard).any(dim=-1)
+        kept = ~flipped
+        kept_share = float(kept.float().mean())
+        flip_gate(torch.nonzero(flipped).flatten().tolist(), [kept_share],
+                  f"moe_forward_sharded on {n} shards")
+        top = float(want.abs().max())
+        err = float((got[0][kept] - want[0][kept]).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > MOE_EP_TOL * top:
+            raise AssertionError(f"moe_forward_sharded on {n} shards: off "
+                                 f"by {err!r}, over {MOE_EP_TOL} of the "
+                                 f"largest |output| {top!r}")
+        full_ms = cuda_ms(lambda: moe_mod.moe_forward(p, x, arch), reps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded()
+        torch.cuda.synchronize()
+        shard_ms = (time.perf_counter() - t0) * 1e3
+        cap = max(8, -(-int(sl * m.top_k / n * m.capacity_factor) // 8) * 8)
+        send = [torch.zeros((n, cap, d), device=dev) for _ in range(n)]
+        mesh.run(lambda comm, s: comm.all_to_all(s), send)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.run(lambda comm, s: comm.all_to_all(s), send)
+        torch.cuda.synchronize()
+        a2a_ms = (time.perf_counter() - t0) * 1e3
+    a2a_bytes = n * n * cap * d * 4
+    rec = dict(shards=n, experts_per_shard=el, tokens=S, capacity=cap,
+               capacity_factor=m.capacity_factor, max_abs_err=err,
+               largest_abs_output=top, kept_share=kept_share,
+               flips=int(flipped.sum()),
+               flipped_positions=torch.nonzero(flipped).flatten().tolist(),
+               aux_sharded=float(outs[0][1]),
+               aux_full=float(want_aux), all_to_all_bytes=a2a_bytes,
+               all_to_all_ms=a2a_ms, sharded_wall_ms=shard_ms,
+               full_ms=full_ms)
+    log(f"{MOE_ARCH} expert-parallel dispatch on {n} virtual shards vs "
+        f"moe_forward (one layer, 1 x {S} tokens, factor "
+        f"{m.capacity_factor}): {json.dumps(rec)}; all-to-all bytes are "
+        f"one pass of the activations (x out; the results back are as "
+        f"many), its ms the host clock around one exchange on the mesh")
+    if len({float(a) for _, a in outs}) != 1:
+        raise AssertionError(f"shards disagree on the aux loss: "
+                             f"{[float(a) for _, a in outs]}")
+    if abs(float(outs[0][1]) - float(want_aux)) > 1e-5 * abs(
+            float(want_aux)):
+        raise AssertionError(f"sharded aux {float(outs[0][1])!r} vs "
+                             f"{float(want_aux)!r}")
+    return rec
+
+
+def moe_train_check(dev, arch):
+    """phi3.5-moe at full width cut to MOE_TRAIN_LAYERS: one loss and
+    backward with the flash kernel against the plain path, under the flip
+    rule. Returns (the kernel's launches, the flips)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.lm import LMModel
+    arch = dataclasses.replace(arch, n_layers=MOE_TRAIN_LAYERS)
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    params = model.init_params(seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, 1, MOE_TRAIN_S, step=0, seed=SEED).items()}
+    routed = [[], []]
+    with torch.no_grad():
+        for m_, rec in zip((model, plain), routed):
+            with record_routing(rec):
+                m_.forward(params, batch)
+    flips = routing_flips(*routed)
+    first = first_flip(flips, 1, MOE_TRAIN_S)[0]
+    log(f"train: {MOE_ARCH} at full width, depth cut to {MOE_TRAIN_LAYERS} "
+        f"of 32 layers, 1 x {MOE_TRAIN_S} tokens; dropped per layer "
+        f"{[r['dropped'] for r in routed[0]]} at capacity "
+        f"{routed[0][0]['capacity']}; kernels vs plain: {len(flips)} routing "
+        f"flips {flips[:20]}")
+    flip_gate(flips, [first / MOE_TRAIN_S], f"{MOE_ARCH} loss and backward")
+    launched = kernels_vs_plain_step(
+        model, plain, params, batch,
+        f"{MOE_ARCH} ({MOE_TRAIN_LAYERS} layers)",
+        flip_at=first if flips else None)
+    if launched != {"flash_attention": 2 * MOE_TRAIN_LAYERS}:
+        raise AssertionError(f"{MOE_ARCH} loss and backward launched "
+                             f"{launched}")
+    del params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched["flash_attention"], flips
+
+
+def moe_phase(dev):
+    """Serve phi3.5-moe at full width, depth cut to MOE_LAYERS: the prefill
+    through ``LMModel.prefill`` (launch counts read around it, expert ids
+    recorded), the flash kernel against its plain version at the
+    prefill's own inputs, logits against the plain path and decode against
+    forward under the flip rule, 32 requests through the launcher, the
+    expert-parallel dispatch on 8 virtual shards, and one loss and
+    backward at 2 layers. Returns (flash's shape record with its
+    launches, the phase's numbers)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.params import param_count
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products, as the
+    torch.backends.cudnn.allow_tf32 = False         # reference's
+    t_phase = time.perf_counter()
+    arch = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    m = arch.moe
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(seed=SEED)
+    torch.cuda.synchronize()
+    n_params = param_count(model.schema())
+    log(f"MoE: {MOE_ARCH} at full width (d_model {arch.d_model}, "
+        f"{arch.n_heads}/{arch.n_kv_heads} heads x "
+        f"{arch.resolved_head_dim}, {m.n_experts} experts top-{m.top_k} of "
+        f"d_expert {m.d_expert}, capacity factor {m.capacity_factor}, vocab "
+        f"{arch.vocab_size}), depth cut to {MOE_LAYERS} of 32 layers: "
+        f"{n_params} fp32 parameters ({n_params * 4 / 2**30:.3f} GiB) "
+        f"drawn on the card in {time.perf_counter() - t0:.3f} s, seed {SEED}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(1, arch.vocab_size, (LM_B, LM_S), device=dev,
+                           dtype=torch.int32, generator=gen)
+    batch = {"tokens": tokens}
+
+    routed = []
+    with torch.no_grad(), record_routing(routed, keep_input=True):
+        logits, launches, (fa_call,) = prefill_main_path(
+            model, params, batch, "MoE", {"flash_attention": MOE_LAYERS},
+            [(attn_mod, "flash_attention")])
+    x0 = routed[0].pop("x")[:1]               # layer 0's MoE input, seq 0
+    (q, k, v), fa_kw = fa_call
+    with torch.no_grad():
+        fa_rec = attention_record(q, k, v, f"{MOE_ARCH} prefill (layer 0)",
+                                  fa_kw["scale"])
+        del q, k, v, fa_call
+        numbers = lm_prefill_checks(model, plain, params, batch, logits,
+                                    "MoE", routed=routed)
+        if numbers["prefill_peak_gib"] >= MOE_PEAK_GIB:
+            raise AssertionError(f"MoE prefill peak "
+                                 f"{numbers['prefill_peak_gib']:.3f} GiB "
+                                 f"reaches {MOE_PEAK_GIB}")
+        dec_flips = decode_vs_forward(no_drop(arch), params, tokens,
+                                      "tokens", dev, "MoE", routed=True)
+    del params, plain, model, logits, routed
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("MoE prefill, kernel, decode vs forward")
+    t_serve = time.perf_counter()
+    wave_ms, wave_device, serve_peak = lm_serving(MOE_SERVE_ARGV, "MoE",
+                                                  arch=arch)
+    if serve_peak >= MOE_PEAK_GIB:
+        raise AssertionError(f"MoE serving peak {serve_peak:.3f} GiB "
+                             f"reaches {MOE_PEAK_GIB}")
+    t_ep = time.perf_counter()
+    ep = moe_ep_check(dev, arch, x0)
+    del x0
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("MoE expert-parallel dispatch")
+    t_train = time.perf_counter()
+    train_launches, train_flips = moe_train_check(dev, arch)
+    peak_line(f"MoE loss and backward, {MOE_TRAIN_LAYERS} layers")
+    t_end = time.perf_counter()
+    numbers.update(
+        layers=MOE_LAYERS, params=n_params, decode_flips=dec_flips,
+        wave_ms=wave_ms, wave_device=wave_device, serve_peak_gib=serve_peak,
+        expert_parallel=ep,
+        train_launches=train_launches, train_flips=train_flips,
+        seconds=dict(prefill_checks=t_serve - t_phase,
+                     serving=t_ep - t_serve, expert_parallel=t_train - t_ep,
+                     train=t_end - t_train, total=t_end - t_phase))
+    log(f"MoE phase: {t_end - t_phase:.3f} s")
+    fa_rec.update(launches=launches, launches_train=train_launches)
+    return fa_rec, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 12: qwen2-vl-2b and musicgen-large at full width and depth
+# ---------------------------------------------------------------------------
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-2b", "musicgen-large"
+AUDIO_SERVE_ARGV = ["--arch", AUDIO_ARCH, "--requests", "8", "--wave-slots",
+                    "8", "--max-new", "16", "--seed", str(SEED)]
+
+
+def family_run(dev, name):
+    """One family at full width and depth: a 2 x 4096 prefill from the
+    data pipeline's batch (qwen2-vl: 1,024 patch embeddings with their 3-D
+    positions, then 3,072 text tokens; musicgen: frame embeddings, 4
+    codebook heads), flash against its plain version at that prefill's
+    inputs, logits against the plain path, decode against forward
+    (musicgen's steps take the frame embeddings one at a time). Returns
+    flash's shape record with its launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.params import param_count
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import LMModel
+    arch = get_arch(name)
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(seed=SEED)
+    n_params = param_count(model.schema())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, LM_B, LM_S, step=0, seed=SEED).items() if k != "labels"}
+    log(f"{name} at full width and depth ({arch.n_layers} layers, d_model "
+        f"{arch.d_model}, {arch.n_heads}/{arch.n_kv_heads} heads x "
+        f"{arch.resolved_head_dim}, vocab {arch.vocab_size}): {n_params} fp32 "
+        f"parameters ({n_params * 4 / 2**30:.3f} GiB), seed {SEED}; batch "
+        f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+    with torch.no_grad():
+        logits, launches, (fa_call,) = prefill_main_path(
+            model, params, batch, name, {"flash_attention": arch.n_layers},
+            [(attn_mod, "flash_attention")])
+        (q, k, v), fa_kw = fa_call
+        fa_rec = attention_record(q, k, v, f"{name} prefill (layer 0)",
+                                  fa_kw["scale"])
+        del q, k, v, fa_call
+        lm_prefill_checks(model, plain, params, batch, logits, name)
+        key = "embeds" if arch.n_codebooks else "tokens"
+        decode_vs_forward(arch, params, batch[key], key, dev, name)
+    del params, plain, model, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line(f"{name} prefill, kernel, decode vs forward")
+    fa_rec.update(launches=launches)
+    return fa_rec
+
+
+def families_phase(dev):
+    """qwen2-vl-2b and musicgen-large at full width and depth, then a short
+    served run of musicgen (its waves feed codes). Returns flash's two
+    shape records."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products, as the
+    torch.backends.cudnn.allow_tf32 = False         # reference's
+    t0 = time.perf_counter()
+    recs = [family_run(dev, VLM_ARCH), family_run(dev, AUDIO_ARCH)]
+    lm_serving(AUDIO_SERVE_ARGV, "audio")
+    log(f"families phase: {time.perf_counter() - t0:.3f} s")
+    return recs
+
+
+def peak_line(label: str) -> float:
+    """Print the phase's peak device memory in GiB, reset the counter and
+    return the peak."""
     import torch
     torch.cuda.synchronize()
-    log(f"peak memory [{label}]: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak memory [{label}]: {peak:.3f} GiB")
     torch.cuda.reset_peak_memory_stats()
+    return peak
 
 
 def main() -> int:
@@ -3475,6 +3996,20 @@ def main() -> int:
         backward=dict(route="autograd through wkv6_ref (bit-equal)"),
         launches_train_step_note=f"{RWKV_ARCH}, {RWKV_TRAIN_LAYERS} of 32 "
         f"layers, one loss and backward at 1 x {RWKV_TRAIN_S}")
+    t_new = time.perf_counter()
+    moe_fa, moe_numbers = moe_phase(dev)
+    torch.cuda.reset_peak_memory_stats()
+    vlm_fa, audio_fa = families_phase(dev)
+    log(f"moe and families phases: {time.perf_counter() - t_new:.3f} s")
+    lm_kernels[0].update(
+        launches_moe_prefill=moe_fa.pop("launches"),
+        launches_moe_train=moe_fa.pop("launches_train"),
+        launches_vlm_prefill=vlm_fa.pop("launches"),
+        launches_audio_prefill=audio_fa.pop("launches"),
+        family_shapes=[moe_fa, vlm_fa, audio_fa])
+    log("flash_attention ms / SDPA ms, per prefill shape: " + "; ".join(
+        f"{r['shape'].split(':')[0]} {r['ms'] / r['library_ms']!r}"
+        for r in (lm_kernels[0], moe_fa, vlm_fa, audio_fa)))
 
     head = agg_times["q18"]
     kernels = [
@@ -3508,6 +4043,7 @@ def main() -> int:
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
+    print("moe " + json.dumps(moe_numbers))
     print("train " + json.dumps(train_numbers))
     print("calibration " + json.dumps(calib_report))
     print(json.dumps({"kernels": kernels}))

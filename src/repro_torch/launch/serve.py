@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.reduced import reduced as make_reduced
-from repro_torch.core.config import AllocatorKind
+from repro_torch.core.config import AllocatorKind, ArchConfig
 from repro_torch.models.lm import LMModel
 from repro_torch.runtime import ContinuousBatcher, Request
 
@@ -42,12 +42,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None
+def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
+          arch: Optional[ArchConfig] = None
           ) -> Tuple[Dict[str, Any], ContinuousBatcher]:
     """Run the requests to completion. ``params`` (the model's tree on
-    ``args.device``) replaces the seeded fp32 init when given. Returns the
-    statistics printed by ``main`` and the batcher (its final cache)."""
-    arch = get_arch(args.arch)
+    ``args.device``) replaces the seeded fp32 init when given; ``arch``
+    (e.g. a depth-cut config) replaces ``get_arch(args.arch)``. Returns
+    the statistics printed by ``main`` and the batcher (its final
+    cache)."""
+    if arch is None:
+        arch = get_arch(args.arch)
     if args.reduced:
         arch = make_reduced(arch)
     model = LMModel(arch, device=args.device)

@@ -1,7 +1,7 @@
 """Grouped-query attention: schema, full-sequence pass, KV cache, decode.
 
-The counterpart of the GQA half of ``repro.models.attention`` (MLA comes
-with the deepseek slice). Head counts arrive TP-padded
+The counterpart of the GQA half of ``repro.models.attention``, RoPE and
+M-RoPE (MLA comes with the deepseek slice). Head counts arrive TP-padded
 (``core.config.PaddedDims``). The full-sequence pass goes through
 ``flash_attention`` (the CUDA kernel on the card); decode is plain.
 
@@ -19,7 +19,7 @@ from repro_torch.core.config import ArchConfig, PaddedDims, RopeKind
 from repro_torch.core.params import pdef
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import decode_attention_ref
-from repro_torch.models.layers import apply_rope, head_rms_norm
+from repro_torch.models.layers import apply_mrope, apply_rope, head_rms_norm
 
 
 def gqa_schema(arch: ArchConfig, padded: PaddedDims) -> Dict[str, Any]:
@@ -60,15 +60,17 @@ def _positions_rope(arch: ArchConfig, q, k, q_positions, k_positions):
         q = apply_rope(q, q_positions, arch.rope_theta)
         k = apply_rope(k, k_positions, arch.rope_theta)
     elif arch.rope == RopeKind.MROPE:
-        raise NotImplementedError("M-RoPE comes with the qwen2-vl slice")
+        q = apply_mrope(q, q_positions, arch.rope_theta)
+        k = apply_mrope(k, k_positions, arch.rope_theta)
     return q, k
 
 
 def gqa_forward(p: Dict[str, Any], x: torch.Tensor, arch: ArchConfig, *,
                 positions: torch.Tensor, window: Optional[int] = None,
                 kernel_mode: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence (prefill) GQA pass. x: (B, S, d); contiguous
-    positions from 0."""
+    """Full-sequence (prefill) GQA pass. x: (B, S, d); the causal mask
+    takes the rows as contiguous positions from 0, ``positions`` ((S,), or
+    (B, S, 3) for M-RoPE) only rotate q and k."""
     q, k, v = _project_qkv(p, x, arch)
     q, k = _positions_rope(arch, q, k, positions, positions)
     out = flash_attention(q, k, v, causal=True, window=window,
@@ -109,6 +111,8 @@ def gqa_decode(p: Dict[str, Any], x: torch.Tensor,
     are position-aligned, so one index serves every lane."""
     q, k, v = _project_qkv(p, x, arch)
     pos = cache_len[:, None]                       # (B, 1)
+    if arch.rope == RopeKind.MROPE:                # the 3 streams share it
+        pos = pos[..., None].expand(pos.shape + (3,))
     q, k = _positions_rope(arch, q, k, pos, pos)
     buf = cache["k"].shape[1]
     idx = cache_len[:1].long()

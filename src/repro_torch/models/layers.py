@@ -1,9 +1,8 @@
-"""Shared layer primitives: norms, activations, RoPE, the loss.
+"""Shared layer primitives: norms, activations, RoPE / M-RoPE, the loss.
 
 The counterpart of ``repro.models.layers``. Every reduction that decides
 stability (the norm's mean of squares, the loss's logsumexp) is computed
-in float32, as in the reference. ``apply_mrope`` comes with the vlm
-family's slice.
+in float32, as in the reference.
 """
 from __future__ import annotations
 
@@ -61,17 +60,40 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exponent)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions broadcastable to
-    (..., seq)."""
-    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
-    angles = positions.float()[..., None] * inv_freq      # (..., S, hd/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE of x (..., S, heads, hd) by angles (..., S, hd/2),
+    in float32."""
     cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcastable to
+    (..., seq)."""
+    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
+    return _rotate(x, positions.float()[..., None] * inv_freq)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int] = (1, 1, 2)) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): 3 position streams (t, h, w) rotate
+    disjoint bands of the head dimension, of relative widths ``sections``.
+
+    x: (..., seq, heads, head_dim); positions: (..., seq, 3)."""
+    half = x.shape[-1] // 2
+    total = sum(sections)
+    widths = [half * s // total for s in sections]
+    widths[-1] = half - sum(widths[:-1])
+    stream = torch.cat([torch.full((w,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, w in enumerate(widths)])
+    pos = positions.float()[..., stream]                  # (..., S, hd/2)
+    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
+    return _rotate(x, pos * inv_freq)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,22 +1,30 @@
-"""The decoder LM stack, for the hybrid, dense and rwkv layer plans.
+"""The decoder LM stack, for every layer plan but MLA.
 
 The counterpart of ``repro.models.lm.LMModel``:
   dense  (yi-34b, qwen2-0.5b, qwen3-1.7b, granite-3-8b):  GQA + SwiGLU
+  moe    (phi3.5-moe):         GQA + MoE (leading dense layers of their own
+                               width and shared experts where configured)
   hybrid (recurrentgemma-2b):  (RG-LRU, RG-LRU, local-attn) pattern + GeGLU
   ssm    (rwkv6-7b):           time-mix + channel-mix (attention-free)
+  audio  (musicgen-large):     GQA over precomputed frame embeddings, one
+                               head per codebook
+  vlm    (qwen2-vl-2b):        GQA + M-RoPE over the [patch; text] stream
 
 Parameters and caches keep the reference's layout (``core.params``): a
-homogeneous stack is stacked along a leading layer axis and a pattern's
-tail is ``tail{i}``. Where the reference scans the stack, the port walks
-it with a Python loop over views, one ``unbind(0)`` of each stacked leaf a
-pass (indexing ``t[i]`` per layer would make the backward write a
-full-size zero buffer for every layer of every leaf). With
+homogeneous stack is stacked along a leading layer axis (an MoE stack's
+leading dense layers are ``dense_blocks``, its MoE layers ``blocks``) and
+a pattern's tail is ``tail{i}``. Where the reference scans the stack, the
+port walks it with a Python loop over views, one ``unbind(0)`` of each
+stacked leaf a pass (indexing ``t[i]`` per layer would make the backward
+write a full-size zero buffer for every layer of every leaf). With
 ``remat="block"`` each stacked layer, or each hybrid super-block, runs
 under ``torch.utils.checkpoint`` when a gradient is being taken, as the
 reference wraps its scan body; the tail is not wrapped, as in the
 reference. ``prefill`` applies the head to the last position only.
-``loss_fn`` is the reference's. The other plans (moe, audio, vlm, MLA)
-raise ``NotImplementedError``: they come with later slices of the port.
+``loss_fn`` is the reference's; ``forward`` sums the MoE layers' aux
+losses. The MoE layers run ``moe.moe_forward`` (the expert-parallel
+``moe_forward_sharded`` is not wired in here). MLA (deepseek-v3) raises
+``NotImplementedError``: it comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.core.config import (ArchConfig, AttentionKind, PaddedDims,
                                      RopeKind, resolve_device)
 from repro_torch.core.params import ParamDef, init_params, pdef
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import cross_entropy, rms_norm, swiglu
@@ -73,8 +82,10 @@ def _restack(per_layer: List[Dict[str, torch.Tensor]],
     return out
 
 
-def _mlp_schema(arch: ArchConfig, padded: PaddedDims) -> Dict[str, Any]:
-    d, f = arch.d_model, padded.d_ff
+def _mlp_schema(arch: ArchConfig, padded: PaddedDims,
+                d_ff: Optional[int] = None) -> Dict[str, Any]:
+    d = arch.d_model
+    f = d_ff if d_ff is not None else padded.d_ff
     return {
         "w_gate": pdef((d, f), ("embed", "ff"), "scaled"),
         "w_up": pdef((d, f), ("embed", "ff"), "scaled"),
@@ -85,13 +96,7 @@ def _mlp_schema(arch: ArchConfig, padded: PaddedDims) -> Dict[str, Any]:
 def _unsupported(arch: ArchConfig) -> Optional[str]:
     if arch.attention == AttentionKind.MLA:
         return "MLA attention"
-    if arch.moe is not None:
-        return "the moe layer plan"
-    if arch.n_codebooks:
-        return "the audio family (codebook heads)"
-    if arch.vlm or arch.rope == RopeKind.MROPE:
-        return "the vlm family (M-RoPE, patch embeddings)"
-    if arch.family not in ("dense", "hybrid", "ssm"):
+    if arch.family not in ("dense", "moe", "hybrid", "ssm", "audio", "vlm"):
         return f"the {arch.family} family"
     return None
 
@@ -114,7 +119,8 @@ class LMModel:
         if missing is not None:
             raise NotImplementedError(
                 f"{arch.name}: {missing} comes with a later slice of the "
-                "port; this one runs the hybrid, dense and rwkv plans")
+                "port; this one runs the dense, moe, hybrid, ssm, audio and "
+                "vlm plans over GQA")
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r} not in {REMAT}")
         self.arch = arch
@@ -130,31 +136,58 @@ class LMModel:
                     for i in range(n_super * len(pat), arch.n_layers)]
             self.plan = {"kind": "hybrid", "n_super": n_super,
                          "pattern": tuple(pat), "tail": tail}
+        elif arch.moe is not None:
+            nd = arch.moe.n_dense_layers
+            self.plan = {"kind": "moe", "n_dense": nd,
+                         "n_moe": arch.n_layers - nd}
         else:
             self.plan = {"kind": "rwkv" if arch.family == "ssm" else "dense",
                          "n": arch.n_layers}
+
+    def _groups(self) -> List[Tuple[str, str, int]]:
+        """(tree key, layer kind, layers) of each homogeneous stack, in
+        execution order, for every plan but the hybrid one."""
+        plan = self.plan
+        if plan["kind"] == "moe":
+            dense = ([("dense_blocks", "dense", plan["n_dense"])]
+                     if plan["n_dense"] else [])
+            return dense + [("blocks", "moe", plan["n_moe"])]
+        return [("blocks", plan["kind"], plan["n"])]
 
     # ------------------------------------------------------------------
     # schema and parameters
     # ------------------------------------------------------------------
     def _layer_schema(self, kind: str) -> Dict[str, Any]:
-        d = self.arch.d_model
+        arch = self.arch
+        d = arch.d_model
         ln = lambda: pdef((d,), ("embed",), "ones")
         if kind == "rwkv":
             # the channel mix's parameters (cm_*) live inside "tm"
-            return {"ln1": ln(), "tm": rwkv_mod.rwkv_schema(self.arch),
+            return {"ln1": ln(), "tm": rwkv_mod.rwkv_schema(arch),
                     "ln2": ln()}
-        mix = ({"rglru": rglru_mod.rglru_schema(self.arch)} if kind == "rglru"
-               else {"attn": attn_mod.gqa_schema(self.arch, self.padded)})
+        mix = ({"rglru": rglru_mod.rglru_schema(arch)} if kind == "rglru"
+               else {"attn": attn_mod.gqa_schema(arch, self.padded)})
+        if kind == "moe":
+            return {"ln1": ln(), **mix, "ln2": ln(),
+                    "moe": moe_mod.moe_schema(arch)}
+        # an MoE stack's leading dense layers may have a width of their own
+        d_ff = arch.moe.dense_d_ff if arch.moe is not None else None
         return {"ln1": ln(), **mix, "ln2": ln(),
-                "mlp": _mlp_schema(self.arch, self.padded)}
+                "mlp": _mlp_schema(arch, self.padded, d_ff)}
 
     def schema(self) -> Dict[str, Any]:
         arch, plan = self.arch, self.plan
         d, Vp = arch.d_model, self.padded.vocab_size
-        s: Dict[str, Any] = {"embed": pdef((Vp, d), ("vocab", "embed"))}
-        if not arch.tie_embeddings:
-            s["lm_head"] = pdef((d, Vp), ("embed", "vocab"), "scaled")
+        s: Dict[str, Any] = {}
+        if arch.n_codebooks:
+            s["embed_codes"] = pdef((arch.n_codebooks, Vp, d),
+                                    (None, "vocab", "embed"))
+            s["head_codes"] = pdef((arch.n_codebooks, d, Vp),
+                                   (None, "embed", "vocab"), "scaled")
+        else:
+            s["embed"] = pdef((Vp, d), ("vocab", "embed"))
+            if not arch.tie_embeddings:
+                s["lm_head"] = pdef((d, Vp), ("embed", "vocab"), "scaled")
         s["final_norm"] = pdef((d,), ("embed",), "ones")
         if plan["kind"] == "hybrid":
             s["blocks"] = _stack_schema(
@@ -163,8 +196,8 @@ class LMModel:
             for i, k in enumerate(plan["tail"]):
                 s[f"tail{i}"] = self._layer_schema(k)
         else:
-            s["blocks"] = _stack_schema(self._layer_schema(plan["kind"]),
-                                        plan["n"])
+            for key, kind, n in self._groups():
+                s[key] = _stack_schema(self._layer_schema(kind), n)
         return s
 
     def init_params(self, seed: int = 0,
@@ -192,8 +225,9 @@ class LMModel:
             for i, kind in enumerate(plan["tail"]):
                 yield False, [(kind, f"tail{i}", -1, tree[f"tail{i}"])]
         else:
-            for s, layer in enumerate(_unstack(tree["blocks"], plan["n"])):
-                yield True, [(plan["kind"], "", s, layer)]
+            for key, kind, n in self._groups():
+                for s, layer in enumerate(_unstack(tree[key], n)):
+                    yield True, [(kind, key, s, layer)]
 
     def _walk(self, tree: Dict[str, Any]
               ) -> Iterator[Tuple[str, str, int, Dict[str, Any]]]:
@@ -206,8 +240,11 @@ class LMModel:
     # full sequence
     # ------------------------------------------------------------------
     def _block_fwd(self, kind: str, p: Dict[str, Any], x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the layer's output, its aux loss: 0 but for an MoE layer)."""
         arch = self.arch
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = rms_norm(x, p["ln1"], arch.norm_eps)
         if kind == "rwkv":
             mix = rwkv_mod.time_mix_forward(p["tm"], h, arch,
@@ -224,68 +261,103 @@ class LMModel:
         x = x + mix
         h = rms_norm(x, p["ln2"], arch.norm_eps)
         if kind == "rwkv":
-            return x + rwkv_mod.channel_mix_forward(p["tm"], h)
+            return x + rwkv_mod.channel_mix_forward(p["tm"], h), aux
+        if kind == "moe":
+            y, aux = moe_mod.moe_forward(p["moe"], h, arch)
+            return x + y, aux
         return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                          p["mlp"]["w_down"], arch.act)
+                          p["mlp"]["w_down"], arch.act), aux
 
     def _embed(self, params: Dict[str, Any],
-               tokens: torch.Tensor) -> torch.Tensor:
-        tok = params["embed"][tokens.long()]
-        if self.arch.family == "hybrid":
-            tok = tok * torch.tensor(self.arch.d_model ** 0.5,
-                                     dtype=tok.dtype)
+               batch: Dict[str, Any]) -> torch.Tensor:
+        arch = self.arch
+        if arch.n_codebooks:
+            # the audio stub: precomputed frame embeddings (EnCodec's)
+            return batch["embeds"]
+        tok = params["embed"][batch["tokens"].long()]
+        if arch.vlm and "patch_embeds" in batch:
+            tok = torch.cat([batch["patch_embeds"].to(tok.dtype), tok],
+                            dim=1)
+        if arch.family == "hybrid":
+            tok = tok * torch.tensor(arch.d_model ** 0.5, dtype=tok.dtype)
         return tok
+
+    def _positions(self, batch: Dict[str, Any], seq_len: int,
+                   device: torch.device) -> torch.Tensor:
+        """(S,) positions, or (B, S, 3) (t, h, w) streams for M-RoPE: the
+        patches' own, then the text's from the patch count on."""
+        if self.arch.rope != RopeKind.MROPE:
+            return torch.arange(seq_len, device=device)
+        if "patch_pos" in batch:
+            patch = batch["patch_pos"].long()
+            B, P = patch.shape[:2]
+            text = P + torch.arange(seq_len - P, device=device)
+            return torch.cat([patch, text[None, :, None].expand(
+                B, seq_len - P, 3)], dim=1)
+        B = batch["tokens"].shape[0]
+        return torch.arange(seq_len, device=device)[None, :, None].expand(
+            B, seq_len, 3)
 
     def _head(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        if self.arch.n_codebooks:
+            return torch.einsum("bsd,cdv->bscv", x, params["head_codes"])
         if self.arch.tie_embeddings:
             return torch.einsum("bsd,vd->bsv", x, params["embed"])
         return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
     def _unit_fwd(self, kinds: Tuple[str, ...], ps: List[Dict[str, Any]],
-                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(kinds, ps):
-            x = self._block_fwd(kind, p, x, positions)
-        return x
+            x, a = self._block_fwd(kind, p, x, positions)
+            aux = aux + a
+        return x, aux
 
-    def _hidden(self, params: Dict[str, Any],
-                batch: Dict[str, Any]) -> torch.Tensor:
-        x = self._embed(params, batch["tokens"])
-        positions = torch.arange(x.shape[1], device=x.device)
+    def _hidden(self, params: Dict[str, Any], batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the last layer's output, the layers' summed aux loss)."""
+        x = self._embed(params, batch)
+        positions = self._positions(batch, x.shape[1], x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.remat == "block" and torch.is_grad_enabled()
         for stacked, layers in self._units(params):
             kinds = tuple(kind for kind, _, _, _ in layers)
             ps = [p for _, _, _, p in layers]
             if stacked and remat:
-                x = checkpoint(self._unit_fwd, kinds, ps, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._unit_fwd, kinds, ps, x, positions,
+                                  use_reentrant=False)
             else:
-                x = self._unit_fwd(kinds, ps, x, positions)
-        return x
+                x, a = self._unit_fwd(kinds, ps, x, positions)
+            aux = aux + a
+        return x, aux
 
     def forward(self, params: Dict[str, Any], batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Full-sequence pass -> (logits, hidden, aux_loss = 0)."""
-        x = self._hidden(params, batch)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        """Full-sequence pass -> (logits, hidden, aux_loss)."""
+        x, aux = self._hidden(params, batch)
         return self._head(params, x), x, aux
 
     def loss_fn(self, params: Dict[str, Any], batch: Dict[str, Any],
                 z_loss: float = 0.0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(total loss, {"ce", "aux", "z"}) of next-token prediction on
-        batch["tokens"] against batch["labels"]."""
+        """(total loss, {"ce", "aux", "z"}) of next-token prediction against
+        batch["labels"]: every codebook's for audio, the text tail's for a
+        vlm batch with patches."""
         logits, _, aux = self.forward(params, batch)
-        loss, z = cross_entropy(logits, batch["labels"],
-                                self.arch.vocab_size, z_loss)
+        labels = batch["labels"]
+        if self.arch.vlm and "patch_embeds" in batch:
+            logits = logits[:, -labels.shape[1]:]
+        loss, z = cross_entropy(logits, labels, self.arch.vocab_size, z_loss)
         return loss + aux, {"ce": loss, "aux": aux, "z": z}
 
     def prefill(self, params: Dict[str, Any], batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(last-token logits (B, 1, V), aux): ``forward(...)[0][:, -1:]``
-        without the head's work on the other positions."""
-        x = self._hidden(params, batch)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        """(last-token logits (B, 1, V) or (B, 1, C, V), aux):
+        ``forward(...)[0][:, -1:]`` without the head's work on the other
+        positions."""
+        x, aux = self._hidden(params, batch)
         return self._head(params, x[:, -1:]), aux
 
     # ------------------------------------------------------------------
@@ -319,8 +391,9 @@ class LMModel:
             for i, k in enumerate(plan["tail"]):
                 out[f"tail{i}"] = self._layer_cache_spec(k, batch, cap)
         else:
-            out["blocks"] = stacked(
-                self._layer_cache_spec(plan["kind"], batch, cap), plan["n"])
+            for key, kind, n in self._groups():
+                out[key] = stacked(self._layer_cache_spec(kind, batch, cap),
+                                   n)
         return out
 
     def init_cache(self, batch: int, cap: int,
@@ -355,17 +428,22 @@ class LMModel:
         if kind == "rwkv":
             y, cache = rwkv_mod.channel_mix_decode(p["tm"], h, cache)
             return x + y, cache
+        if kind == "moe":
+            y, _ = moe_mod.moe_forward(p["moe"], h, arch)
+            return x + y, cache
         return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                           p["mlp"]["w_down"], arch.act), cache
 
     def decode_step(self, params: Dict[str, Any], cache: Dict[str, Any],
                     batch: Dict[str, Any]
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One-token serve step. batch['tokens']: (B, 1). Returns (logits,
-        new cache); KV buffers are written in place, recurrent states are
-        new tensors, and "len" advances for every lane."""
+        """One-token serve step. batch['tokens']: (B, 1); for audio
+        batch['embeds'] (B, 1, d) or batch['codes'] (B, 1, C), whose
+        codebook embeddings are summed. Returns (logits, new cache); KV
+        buffers are written in place, recurrent states are new tensors,
+        and "len" advances for every lane."""
         cache_len = cache["len"]
-        x = self._embed(params, batch["tokens"])
+        x = self._decode_embed(params, batch)
         new_cache: Dict[str, Any] = {"len": cache_len + 1}
         per_layer: Dict[str, List] = {}
         views: Dict[str, List] = {}
@@ -382,6 +460,19 @@ class LMModel:
                 key: _restack(per_layer[key], views[key],
                               cache["blocks"][key]) for key in per_layer}
         else:
-            new_cache["blocks"] = _restack(per_layer[""], views[""],
-                                           cache["blocks"])
+            for key in per_layer:
+                new_cache[key] = _restack(per_layer[key], views[key],
+                                          cache[key])
         return self._head(params, x), new_cache
+
+    def _decode_embed(self, params: Dict[str, Any],
+                      batch: Dict[str, Any]) -> torch.Tensor:
+        arch = self.arch
+        if not arch.n_codebooks:
+            return self._embed(params, {"tokens": batch["tokens"]})
+        if "embeds" in batch:
+            return batch["embeds"]
+        codes = batch["codes"].long()
+        return torch.stack([params["embed_codes"][c][codes[..., c]]
+                            for c in range(arch.n_codebooks)],
+                           dim=2).sum(dim=2)

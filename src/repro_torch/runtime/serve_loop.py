@@ -63,8 +63,15 @@ class ContinuousBatcher:
         self.queue: List[Request] = []
         self.cache = model.init_cache(wave_slots, max_len)
         self.stats = ServeStats()
-        self._tokens = torch.zeros((wave_slots, 1), dtype=torch.int32,
-                                   device=model.device)
+        # every wave feeds zeros: token ids, or the codebooks' codes
+        C = model.arch.n_codebooks
+        self._wave = ({"codes": torch.zeros((wave_slots, 1, C),
+                                            dtype=torch.int32,
+                                            device=model.device)}
+                      if C else
+                      {"tokens": torch.zeros((wave_slots, 1),
+                                             dtype=torch.int32,
+                                             device=model.device)})
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -93,7 +100,7 @@ class ContinuousBatcher:
         if not occupied:
             return
         _, self.cache = self.model.decode_step(self.params, self.cache,
-                                               {"tokens": self._tokens})
+                                               self._wave)
         self.stats.steps += 1
         self.stats.lane_utilization += len(occupied) / self.wave_slots
         for i in occupied:

@@ -1000,3 +1000,88 @@ def test_cuda_reduced_train_steps_match_the_cpu(dev):
             yield from (leaves(v) if isinstance(v, dict) else (v,))
     for a, b in zip(leaves(out["cpu"][1]), leaves(out["cuda"][1])):
         assert float((a - b.cpu()).abs().max()) <= 2 * lrs
+
+
+# ---------------------------------------------------------------------------
+# the moe, vlm and audio slice
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 32, 8), (128, 12, 2),
+                                      (64, 32, 32)])
+def test_cuda_flash_attention_at_the_families_heads(dev, D, Hq, Hkv):
+    """phi3.5-moe's, qwen2-vl-2b's and musicgen-large's head layouts,
+    causal with no window, at a small S."""
+    gen = torch.Generator(device=dev).manual_seed(D + Hq)
+    q = torch.randn((2, 333, Hq, D), device=dev, generator=gen)
+    k = torch.randn((2, 333, Hkv, D), device=dev, generator=gen)
+    v = torch.randn((2, 333, Hkv, D), device=dev, generator=gen)
+    before = common.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, scale=D ** -0.5)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    want = attention_chunked(q, k, v, scale=D ** -0.5)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
+
+
+def _moe_case(n_experts, factor, seed=0):
+    import dataclasses
+    from repro_torch.configs.reduced import REDUCED
+    from repro_torch.core.params import init_params
+    from repro_torch.models import moe
+    arch = REDUCED["phi3.5-moe"]
+    arch = dataclasses.replace(arch, moe=dataclasses.replace(
+        arch.moe, n_experts=n_experts, capacity_factor=factor))
+    gen = torch.Generator().manual_seed(seed)
+    p = init_params(moe.moe_schema(arch), gen, torch.float32, "cpu")
+    x = torch.randn((2, 64, arch.d_model), generator=gen)
+    return arch, p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [4.0, 1.25])
+def test_cuda_moe_forward_matches_the_cpu(dev, factor):
+    """The layer on the card against the same call on the CPU (at 1.25
+    some assignments drop), and the same bits on two runs."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, p, x = _moe_case(8, factor)
+    want, want_aux = moe.moe_forward(p, x, arch)
+    pd = _to(p, dev)
+    got, aux = moe.moe_forward(pd, x.to(dev), arch)
+    again, _ = moe.moe_forward(pd, x.to(dev), arch)
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_forward_sharded_on_a_virtual_mesh(dev):
+    """The expert-parallel path on 4 virtual shards of the card against
+    ``moe_forward`` on the card (factor 4: neither drops) and against the
+    same mesh on the CPU."""
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, p, x = _moe_case(8, 4.0, seed=1)
+    n, el, sl = 4, 2, x.shape[1] // 4
+
+    def run(d):
+        pd, xd = _to(p, d), x.to(d)
+        inputs = [({"router": pd["router"],
+                    **{k: pd[k][i * el:(i + 1) * el]
+                       for k in ("w_gate", "w_up", "w_down")}},
+                   xd[:, i * sl:(i + 1) * sl]) for i in range(n)]
+        outs = VirtualMesh(n, d, timeout=60).run(
+            lambda comm, a: moe.moe_forward_sharded(comm, a[0], a[1], arch),
+            inputs)
+        return torch.cat([y for y, _ in outs], dim=1), outs[0][1]
+
+    got, aux = run(dev)
+    full, full_aux = moe.moe_forward(_to(p, dev), x.to(dev), arch)
+    cpu, cpu_aux = run(torch.device("cpu"))
+    for want in (full, cpu):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    for want in (full_aux, cpu_aux):
+        np.testing.assert_allclose(float(aux), float(want), rtol=1e-5)

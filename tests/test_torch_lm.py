@@ -204,9 +204,8 @@ def test_params_have_the_reference_layout_counts_and_scales():
 
 
 def test_other_layer_plans_wait_for_their_slices():
-    for name in ("phi3.5-moe", "deepseek-v3", "musicgen-large",
-                 "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for name in ("deepseek-v3",):
+        with pytest.raises(NotImplementedError, match="MLA.*later slice"):
             LMModel(REDUCED[name], device="cpu")
 
 
