@@ -111,7 +111,19 @@ points:
     heads) at full width and depth: a 2 x 4096 prefill each (28 and 48
     ``flash_attention`` launches), the kernel at that prefill's inputs,
     logits against the plain path, 64 decode steps against the forward,
-    and 8 musicgen requests served (its waves feed codes).
+    and 8 musicgen requests served (its waves feed codes);
+  * deepseek-v3 at full width (d_model 7168, 128 heads, MLA at q/k head
+    dim 128 + 64, 256 experts top-8 of 2048 and a shared one), depth cut
+    to its 3 dense layers and first MoE layer of 61, with the MTP head
+    (15.80B fp32 parameters): one 2 x 4096 prefill at capacity factor
+    1.25 (4 ``flash_attention`` launches at head dim 192, v zero-padded
+    from 128), the kernel against its plain version at layer 0's q/k/v
+    with SDPA on the padded and on the 128-wide v, logits against the
+    plain path and 64 steps of the absorbed latent-cache decode against
+    the forward (at capacity factor 32) under the flip rule, one forward
+    ``loss_fn`` at 1 x 1024 (5 launches: the layers and the MTP head's)
+    with ce, aux, mtp and total against the plain pass, and 8 requests
+    through ``launch.serve.serve`` with the cut config.
 
 The kernel launch counts are zeroed just before each path and read just
 after it; a kernel of a path that never launched fails the run. It also
@@ -121,8 +133,8 @@ peak memory per phase. Any failed phase exits non-zero. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
 
-The last lines of standard output are the MoE phase's numbers, the
-training step's numbers, the calibration report, the kernels' JSON
+The last lines of standard output are the MLA and MoE phases' numbers,
+the training step's numbers, the calibration report, the kernels' JSON
 record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2488,11 +2500,11 @@ def device_breakdown(fn):
 
 
 # The routing-flip rule's ceiling (an MoE model): two paths whose round-off
-# differs may route a token whose 2nd and 3rd expert probabilities nearly
-# tie to other experts, which changes it, and what follows it, by O(1). A
-# check holds the positions before the first flip; it fails beyond
-# MAX_FLIPS flips, or when a sequence is held at fewer than MIN_HELD of its
-# positions.
+# differs may route a token whose k-th and (k+1)-th expert probabilities
+# nearly tie to other experts, which changes it, and what follows it, by
+# O(1). A check holds the positions no flip reaches (``flip_reach``); it
+# fails beyond MAX_FLIPS flips, or when a sequence is held at fewer than
+# MIN_HELD of its positions.
 MAX_FLIPS, MIN_HELD = 2, 0.5
 
 
@@ -2547,12 +2559,39 @@ def routing_flips(a, b):
     return sorted(flips, key=lambda f: (f[1], f[2], f[0]))
 
 
-def first_flip(flips, B, S):
-    """Per sequence, the first flipped position (S where none)."""
-    first = [S] * B
-    for _, s, t in flips:
-        first[s] = min(first[s], t)
-    return first
+def flip_reach(flips, dropped, B, S):
+    """(B, S) bool: the positions of the last layer's output that a
+    routing flip can reach. ``flips`` are ``routing_flips``' (MoE layer,
+    sequence, position), the MoE layers in execution order, ``dropped``
+    each layer's dropped assignments (either path's). A flipped token
+    changes by O(1) in its layer. In a layer that drops assignments it
+    moves other tokens' drops too: every later token of the batch's flat
+    order (the dispatch's order). In one that drops nothing the other
+    tokens' rows and K-sums are the same computations, so only the token
+    itself; then, through the attention of the layers after it (an MoE
+    layer but the last), the later positions of its sequence."""
+    import torch
+    reach = torch.zeros(B * S, dtype=torch.bool)
+    for layer, s, t in flips:
+        if dropped[layer]:
+            reach[s * S + t:] = True
+        elif layer < len(dropped) - 1:
+            reach[s * S + t:(s + 1) * S] = True
+        else:
+            reach[s * S + t] = True
+    return reach.view(B, S)
+
+
+def held_shares(reach):
+    """Per sequence, the share of positions no flip reaches."""
+    return [float((~r).float().mean()) for r in reach]
+
+
+def held_unreached(got, want, reach, label):
+    """``held`` at PREFILL_TOL over one sequence's (S, d) last-layer
+    output of two passes, at the positions ``reach`` (S,) leaves out."""
+    keep = ~reach.to(got.device)
+    return held(got[keep], want[keep], PREFILL_TOL, label)
 
 
 def flip_gate(flips, shares, label):
@@ -2643,19 +2682,16 @@ def lm_prefill_checks(model, plain, params, batch, logits, label,
     """Prefill logits with the kernels against the plain versions'
     prefill, then the warm prefill's time, peak memory and device time by
     kind. With ``routed`` (an MoE model: the expert ids recorded in the
-    kernels' prefill), under the flip rule: a token the two paths route to
-    other experts changes by O(1), and through attention every later
-    position of its sequence, and through the capacity drops every later
-    token in the batch's flat order. So the last layer's output is held at
-    the positions before the first flip in the flat order, and a
-    sequence's last-token logits when no position of it is past that
-    flip. Run under torch.no_grad(). Returns the prefill's numbers."""
+    kernels' prefill), under the flip rule: the last layer's output is
+    held at the positions no routing flip reaches (``flip_reach``), and a
+    sequence's last-token logits when no flip reaches its last position.
+    Run under torch.no_grad(). Returns the prefill's numbers."""
     import torch
     B = logits.shape[0]
     numbers = {}
+    reach, shares = None, [1.0] * B
     if routed is None:
         want, _ = plain.prefill(params, batch)
-        shares = [1.0] * B
     else:
         plain_routed = []
         with record_routing(plain_routed):
@@ -2663,10 +2699,10 @@ def lm_prefill_checks(model, plain, params, batch, logits, label,
         want = plain._head(params, want_hidden[:, -1:])
         S = routed[0]["ids"].shape[1]
         flips = routing_flips(routed, plain_routed)
-        first_flat = min((s * S + t for _, s, t in flips), default=B * S)
-        n_held = [min(max(first_flat - s * S, 0), S) for s in range(B)]
-        shares = [n / S for n in n_held]
         dropped = [r["dropped"] for r in routed]
+        reach = flip_reach(flips, [max(a, r["dropped"]) for a, r in zip(
+            dropped, plain_routed)], B, S)
+        shares = held_shares(reach)
         log(f"{label} prefill routing at capacity {routed[0]['capacity']} a "
             f"layer: dropped assignments per layer {dropped} (plain path "
             f"{[r['dropped'] for r in plain_routed]}); kernels vs plain: "
@@ -2675,10 +2711,9 @@ def lm_prefill_checks(model, plain, params, batch, logits, label,
         flip_gate(flips, shares, f"{label} prefill")
         got_hidden, _ = model._hidden(params, batch)
         for s in range(B):
-            err, rel = held(got_hidden[s, :n_held[s]],
-                            want_hidden[s, :n_held[s]], PREFILL_TOL,
-                            f"{label} prefill last layer's output, sequence "
-                            f"{s}")
+            err, rel = held_unreached(got_hidden[s], want_hidden[s],
+                                      reach[s], f"{label} prefill last "
+                                      f"layer's output, sequence {s}")
             log(f"{label} prefill last layer's output, sequence {s}, kernels "
                 f"vs plain: max_abs_err {err!r}, limit share {rel!r}, "
                 f"positions held {shares[s]!r}")
@@ -2686,9 +2721,9 @@ def lm_prefill_checks(model, plain, params, batch, logits, label,
         numbers.update(prefill_flips=flips, prefill_dropped_per_layer=dropped,
                        prefill_held_share=shares)
     for s in range(B):
-        if shares[s] < 1.0:
+        if reach is not None and bool(reach[s, -1]):
             log(f"{label} prefill logits, sequence {s}, not held: a routing "
-                f"flip at or before its last position in the flat order")
+                f"flip reaches its last position")
             continue
         err, rel = held(logits[s], want[s], PREFILL_TOL,
                         f"{label} prefill logits, sequence {s}")
@@ -2716,8 +2751,9 @@ def decode_vs_forward(arch, params, seq, key, dev, label, routed=False):
     pass over the same inputs: ``seq`` (B, S, ...) is the batch's ``key``
     ("tokens" or "embeds"), cut to LM_DECODE positions, and step t decodes
     its position t. With ``routed`` (an MoE model, run at its no-drop
-    capacity) a sequence is held at the steps before its first routing
-    flip between the two. Run under torch.no_grad(). Returns the flips."""
+    capacity) the steps no routing flip between the two reaches
+    (``flip_reach``) are held. Run under torch.no_grad(). Returns the
+    flips."""
     import torch
     from repro_torch.models.lm import LMModel
     m32 = LMModel(arch, device=dev, cache_dtype=torch.float32)
@@ -2731,25 +2767,28 @@ def decode_vs_forward(arch, params, seq, key, dev, label, routed=False):
             step, cache = m32.decode_step(params, cache,
                                           {key: seq[:, t:t + 1]})
             steps.append(step[:, 0])
-    first, flips = [LM_DECODE] * LM_B, []
+    flips = []
+    reach = torch.zeros((LM_B, LM_DECODE), dtype=torch.bool)
     if routed:
         n = len(fwd)
         per_layer = [dict(ids=torch.cat([dec[t * n + i]["ids"]
                                          for t in range(LM_DECODE)], dim=1))
                      for i in range(n)]
         flips = routing_flips(fwd, per_layer)
-        first = first_flip(flips, LM_B, LM_DECODE)
+        reach = flip_reach(flips, [r["dropped"] + sum(
+            dec[t * n + i]["dropped"] for t in range(LM_DECODE))
+            for i, r in enumerate(fwd)], LM_B, LM_DECODE)
         log(f"{label} decode vs forward at capacity factor "
             f"{arch.moe.capacity_factor} (no drops: forward capacity "
             f"{fwd[0]['capacity']}, dropped {sum(r['dropped'] for r in fwd)}"
             f"; decode {sum(r['dropped'] for r in dec)}): {len(flips)} "
             f"routing flips {flips[:20]}")
-    shares = [f / LM_DECODE for f in first]
+    shares = held_shares(reach)
     flip_gate(flips, shares, f"{label} decode vs forward")
     worst = 0.0
     for t in range(LM_DECODE):
         for s in range(LM_B):
-            if t < first[s]:
+            if not reach[s, t]:
                 worst = max(worst, held(
                     steps[t][s], full[s, t], DECODE_TOL,
                     f"{label} decode step {t} sequence {s} vs forward")[0])
@@ -3211,16 +3250,15 @@ def loss_and_grad_norm(model, params, batch, hidden):
             float(adamw.global_norm(dict(enumerate(grads)))))
 
 
-def kernels_vs_plain_step(model, plain, params, batch, label,
-                          flip_at=None):
+def kernels_vs_plain_step(model, plain, params, batch, label, reach=None):
     """Step A: one loss and backward with the kernels and with the plain
     versions on the same params and batch; the loss and the global grad
     norm held within TRAIN_LOSS_TOL and TRAIN_NORM_TOL. Where the two
-    passes route a token to other experts (an MoE model; ``flip_at``, the
-    first such position of the batch's one sequence), the loss and norm
-    cannot be held: the last layer's output before that position is held
-    within PREFILL_TOL instead. Returns the kernels' launches in the
-    kernels' pass."""
+    passes route a token to other experts (an MoE model; ``reach``, the
+    (1, S) positions of the batch's one sequence that a flip reaches,
+    ``flip_reach``), the loss and norm cannot be held: the last layer's
+    output is held at the other positions within PREFILL_TOL instead.
+    Returns the kernels' launches in the kernels' pass."""
     from repro_torch.kernels import common
     before = dict(common.LAUNCHES)
     hidden = []
@@ -3240,14 +3278,14 @@ def kernels_vs_plain_step(model, plain, params, batch, label,
         f"(rel {norm_rel!r}), last layer's output max_abs_err {h_err!r} "
         f"(|value| up to {float(hidden[1].abs().max())!r}); {k_s:.3f} s / "
         f"{p_s:.3f} s; kernels' launches {launched}")
-    if flip_at is not None:
-        err, rel = held(hidden[0][:, :flip_at], hidden[1][:, :flip_at],
-                        PREFILL_TOL, f"{label} last layer's output before "
-                        f"the routing flip at {flip_at}")
-        log(f"{label}: a routing flip at position {flip_at}: the last "
-            f"layer's output before it held, max_abs_err {err!r}, limit "
-            f"share {rel!r}, positions held "
-            f"{flip_at / hidden[1].shape[1]!r}; loss and grad norm not held")
+    if reach is not None:
+        err, rel = held_unreached(hidden[0][0], hidden[1][0], reach[0],
+                                  f"{label} last layer's output where no "
+                                  f"routing flip reaches")
+        log(f"{label}: routing flips: the last layer's output held where "
+            f"none reaches, max_abs_err {err!r}, limit share {rel!r}, "
+            f"positions held {held_shares(reach)[0]!r}; loss and grad norm "
+            f"not held")
     elif not (loss_rel <= TRAIN_LOSS_TOL and norm_rel <= TRAIN_NORM_TOL):
         raise AssertionError(f"{label}: kernels and plain versions part: "
                              f"loss rel {loss_rel!r} (limit "
@@ -3485,7 +3523,7 @@ def ft_drill(dev):
     """The reference's FT drill on the card with reduced
     recurrentgemma-2b: 8 steps, a checkpoint every 2, a failure at step 5,
     against an uninterrupted run. The reduced head dim (16) is not one of
-    the attention kernel's (64, 128, 256), so the drill runs the plain
+    the attention kernel's (64, 128, 192, 256), so the drill runs the plain
     versions."""
     import shutil
     import tempfile
@@ -3685,17 +3723,18 @@ def moe_train_check(dev, arch):
             with record_routing(rec):
                 m_.forward(params, batch)
     flips = routing_flips(*routed)
-    first = first_flip(flips, 1, MOE_TRAIN_S)[0]
+    reach = flip_reach(flips, [max(a["dropped"], b["dropped"])
+                               for a, b in zip(*routed)], 1, MOE_TRAIN_S)
     log(f"train: {MOE_ARCH} at full width, depth cut to {MOE_TRAIN_LAYERS} "
         f"of 32 layers, 1 x {MOE_TRAIN_S} tokens; dropped per layer "
         f"{[r['dropped'] for r in routed[0]]} at capacity "
         f"{routed[0][0]['capacity']}; kernels vs plain: {len(flips)} routing "
         f"flips {flips[:20]}")
-    flip_gate(flips, [first / MOE_TRAIN_S], f"{MOE_ARCH} loss and backward")
+    flip_gate(flips, held_shares(reach), f"{MOE_ARCH} loss and backward")
     launched = kernels_vs_plain_step(
         model, plain, params, batch,
         f"{MOE_ARCH} ({MOE_TRAIN_LAYERS} layers)",
-        flip_at=first if flips else None)
+        reach=reach if flips else None)
     if launched != {"flash_attention": 2 * MOE_TRAIN_LAYERS}:
         raise AssertionError(f"{MOE_ARCH} loss and backward launched "
                              f"{launched}")
@@ -3869,6 +3908,211 @@ def families_phase(dev):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 13: deepseek-v3 (MLA, 256 experts top-8, the MTP head) at full width
+# ---------------------------------------------------------------------------
+MLA_ARCH = "deepseek-v3"
+# 4 of 61 layers: the 3 leading dense layers and the first MoE layer, and
+# the MTP head: 15.80B fp32 parameters, 58.85 GiB (one more MoE layer adds
+# 46 GB: no cut with it fits one 80 GB card)
+MLA_LAYERS = 4
+MLA_SERVE_ARGV = ["--arch", MLA_ARCH, "--requests", "8", "--wave-slots",
+                  "8", "--max-new", "16", "--seed", str(SEED)]
+MLA_PEAK_GIB = 76.0                       # the card's 80 GB, less headroom
+# one loss_fn, forward only, at 1 x 1024 tokens (a backward at full width
+# does not fit: the MoE layer's grads alone are another 42 GiB); the
+# losses of the kernels' pass and the plain one within 1e-5 relative
+MLA_LOSS_S, MLA_LOSS_TOL = 1024, 1e-5
+
+
+def mla_attention_record(q, k, v, label, scale, v_dim):
+    """``attention_record`` at MLA's call (v zero-padded to q's head dim),
+    and SDPA (fp32, ``is_causal``) on v at its own ``v_dim`` columns,
+    which SDPA takes where the kernel does not. SDPA is held to its
+    memory-efficient backend: its math fallback would build the (2, 128,
+    4096, 4096) fp32 scores, 17 GB, beside the 59 GiB of weights."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_chunked
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        rec = attention_record(q, k, v, label, scale)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v[..., :v_dim]))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                              is_causal=True)
+        want = attention_chunked(q, k, v, scale=scale)[..., :v_dim]
+        rec["library_unpadded_max_abs_err"] = float(
+            (sdpa.transpose(1, 2) - want).abs().max())
+        del sdpa, want
+        rec["library_unpadded_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                                   is_causal=True), reps=3)
+    rec["library"] = "SDPA, memory-efficient backend"
+    log(f"flash_attention {label}: SDPA on v at its {v_dim} columns "
+        f"{rec['library_unpadded_ms']!r} ms, max_abs_err "
+        f"{rec['library_unpadded_max_abs_err']!r}")
+    return rec
+
+
+def mla_loss_check(model, plain, params, batch, label):
+    """One ``loss_fn`` (forward only) with the kernels and with the plain
+    versions, the kernels' launches counted around the first; under the
+    flip rule: without a routing flip ce, aux, mtp and the total are held
+    within MLA_LOSS_TOL relative, else the last layer's output where no
+    flip reaches within PREFILL_TOL. Returns (launches, flips, losses)."""
+    import torch
+    from repro_torch.kernels import common
+    routed, hidden, losses = [[], []], [], []
+    with torch.no_grad():
+        for i, (m_, rec) in enumerate(zip((model, plain), routed)):
+            seen = []
+            torch.cuda.synchronize()
+            if i == 0:
+                common.reset_launches()         # just before the path
+            with record_routing(rec), capture(m_, "_head", seen, keep=1):
+                total, metrics = m_.loss_fn(params, batch)
+            torch.cuda.synchronize()
+            if i == 0:
+                launches = {n: c for n, c in common.LAUNCHES.items() if c}
+            hidden.append(seen[0][0][1])
+            losses.append(dict({k: float(v) for k, v in metrics.items()},
+                               total=float(total)))
+    S = batch["tokens"].shape[1]
+    flips = routing_flips(*routed)
+    reach = flip_reach(flips, [max(a["dropped"], b["dropped"])
+                               for a, b in zip(*routed)], 1, S)
+    log(f"{label} loss_fn (forward) at 1 x {S}: kernels {losses[0]}, plain "
+        f"{losses[1]}; dropped per MoE layer "
+        f"{[r['dropped'] for r in routed[0]]} at capacity "
+        f"{routed[0][0]['capacity']}; {len(flips)} routing flips "
+        f"{flips[:20]}; launches {launches}")
+    flip_gate(flips, held_shares(reach), f"{label} loss_fn")
+    if flips:
+        err, rel = held_unreached(hidden[0][0], hidden[1][0], reach[0],
+                                  f"{label} loss_fn last layer's output "
+                                  f"where no routing flip reaches")
+        log(f"{label} loss_fn: routing flips {flips}: the last layer's "
+            f"output held at the {int((~reach).sum())} of {S} positions "
+            f"none reaches, max_abs_err {err!r}, limit share {rel!r}; the "
+            f"losses not held")
+    else:
+        for key in ("ce", "aux", "mtp", "total"):
+            got, want = losses[0][key], losses[1][key]
+            if abs(got - want) > MLA_LOSS_TOL * abs(want):
+                raise AssertionError(f"{label} loss_fn {key}: kernels "
+                                     f"{got!r}, plain {want!r}, over "
+                                     f"{MLA_LOSS_TOL} relative")
+    return launches, flips, losses
+
+
+def mla_phase(dev):
+    """Serve deepseek-v3 at full width, depth cut to MLA_LAYERS (+ the MTP
+    head): the 2 x 4096 prefill through ``LMModel.prefill`` at the
+    published capacity factor (launch counts read around it, expert ids
+    recorded), flash at D 192 against its plain version at the prefill's
+    own inputs with its times, logits against the plain path and decode
+    (the absorbed latent form) against forward at the no-drop factor,
+    under the flip rule; 8 requests through the launcher; one forward
+    ``loss_fn`` with the MTP head, kernels against plain. Returns (flash's
+    shape record with its launches, the phase's numbers)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.params import param_count
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import LMModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products, as the
+    torch.backends.cudnn.allow_tf32 = False         # reference's
+    t_phase = time.perf_counter()
+    arch = dataclasses.replace(get_arch(MLA_ARCH), n_layers=MLA_LAYERS)
+    m, mla = arch.moe, arch.mla
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(seed=SEED)
+    torch.cuda.synchronize()
+    n_params = param_count(model.schema())
+    log(f"MLA: {MLA_ARCH} at full width (d_model {arch.d_model}, "
+        f"{arch.n_heads} heads, MLA q_lora {mla.q_lora_rank} kv_lora "
+        f"{mla.kv_lora_rank} qk {mla.qk_nope_head_dim}+"
+        f"{mla.qk_rope_head_dim} v {mla.v_head_dim}, {m.n_experts} experts "
+        f"top-{m.top_k} of d_expert {m.d_expert} + {m.n_shared_experts} "
+        f"shared, {m.n_dense_layers} dense layers of d_ff {m.dense_d_ff}, "
+        f"capacity factor {m.capacity_factor}, vocab {arch.vocab_size}, the "
+        f"MTP head), depth cut to {MLA_LAYERS} of 61 layers: {n_params} "
+        f"fp32 parameters ({n_params * 4 / 2**30:.3f} GiB) drawn on the card "
+        f"in {time.perf_counter() - t0:.3f} s, seed {SEED}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(1, arch.vocab_size, (LM_B, LM_S), device=dev,
+                           dtype=torch.int32, generator=gen)
+    batch = {"tokens": tokens}
+
+    routed = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), record_routing(routed):
+        logits, launches, (fa_call,) = prefill_main_path(
+            model, params, batch, "MLA", {"flash_attention": MLA_LAYERS},
+            [(attn_mod, "flash_attention")])
+    first_peak = peak_line("MLA first prefill (the captured q/k/v held)")
+    (q, k, v), fa_kw = fa_call
+    del fa_call
+    with torch.no_grad():
+        fa_rec = mla_attention_record(
+            q, k, v, f"{MLA_ARCH} prefill (layer 0, D 192, v padded from "
+            f"{mla.v_head_dim})", fa_kw["scale"], mla.v_head_dim)
+        del q, k, v
+        numbers = lm_prefill_checks(model, plain, params, batch, logits,
+                                    "MLA", routed=routed)
+        if max(first_peak, numbers["prefill_peak_gib"]) >= MLA_PEAK_GIB:
+            raise AssertionError(f"MLA prefill peak {first_peak:.3f} / "
+                                 f"{numbers['prefill_peak_gib']:.3f} GiB "
+                                 f"reaches {MLA_PEAK_GIB}")
+        t_dec = time.perf_counter()
+        dec_flips = decode_vs_forward(no_drop(arch), params, tokens,
+                                      "tokens", dev, "MLA", routed=True)
+        t_loss = time.perf_counter()
+        loss_batch = {k_: torch.from_numpy(v_).to(dev)
+                      for k_, v_ in synth_batch(arch, 1, MLA_LOSS_S, step=0,
+                                                seed=SEED).items()}
+        loss_launches, loss_flips, losses = mla_loss_check(
+            model, plain, params, loss_batch, "MLA")
+    if loss_launches != {"flash_attention": MLA_LAYERS + 1}:
+        raise AssertionError(f"MLA loss_fn launched {loss_launches}, want "
+                             f"{MLA_LAYERS + 1} flash_attention (the "
+                             f"layers and the MTP head's)")
+    del params, plain, model, logits, routed, loss_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_line("MLA loss_fn")
+    t_serve = time.perf_counter()
+    wave_ms, wave_device, serve_peak = lm_serving(MLA_SERVE_ARGV, "MLA",
+                                                  arch=arch)
+    if serve_peak >= MLA_PEAK_GIB:
+        raise AssertionError(f"MLA serving peak {serve_peak:.3f} GiB "
+                             f"reaches {MLA_PEAK_GIB}")
+    t_end = time.perf_counter()
+    kinds = numbers["prefill_device"]["device_ms_by_kind"]
+    busy = sum(kinds.values())
+    numbers.update(
+        layers=MLA_LAYERS, params=n_params, first_prefill_peak_gib=first_peak,
+        prefill_products_share=kinds.get("matmul", 0.0) / busy if busy
+        else "not measured", decode_flips=dec_flips, loss=losses[0],
+        loss_plain=losses[1], loss_flips=loss_flips, wave_ms=wave_ms,
+        wave_device=wave_device, serve_peak_gib=serve_peak,
+        seconds=dict(prefill_checks=t_dec - t_phase,
+                     decode_vs_forward=t_loss - t_dec,
+                     loss=t_serve - t_loss, serving=t_end - t_serve,
+                     total=t_end - t_phase))
+    log(f"MLA phase: {t_end - t_phase:.3f} s")
+    fa_rec.update(launches=launches["flash_attention"],
+                  launches_loss=loss_launches["flash_attention"])
+    return fa_rec, numbers
+
+
 def peak_line(label: str) -> float:
     """Print the phase's peak device memory in GiB, reset the counter and
     return the peak."""
@@ -4001,15 +4245,19 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     vlm_fa, audio_fa = families_phase(dev)
     log(f"moe and families phases: {time.perf_counter() - t_new:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    mla_fa, mla_numbers = mla_phase(dev)
     lm_kernels[0].update(
         launches_moe_prefill=moe_fa.pop("launches"),
         launches_moe_train=moe_fa.pop("launches_train"),
         launches_vlm_prefill=vlm_fa.pop("launches"),
         launches_audio_prefill=audio_fa.pop("launches"),
-        family_shapes=[moe_fa, vlm_fa, audio_fa])
+        launches_mla_prefill=mla_fa.pop("launches"),
+        launches_mla_loss=mla_fa.pop("launches_loss"),
+        family_shapes=[moe_fa, vlm_fa, audio_fa, mla_fa])
     log("flash_attention ms / SDPA ms, per prefill shape: " + "; ".join(
         f"{r['shape'].split(':')[0]} {r['ms'] / r['library_ms']!r}"
-        for r in (lm_kernels[0], moe_fa, vlm_fa, audio_fa)))
+        for r in (lm_kernels[0], moe_fa, vlm_fa, audio_fa, mla_fa)))
 
     head = agg_times["q18"]
     kernels = [
@@ -4043,6 +4291,7 @@ def main() -> int:
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
+    print("mla " + json.dumps(mla_numbers))
     print("moe " + json.dumps(moe_numbers))
     print("train " + json.dumps(train_numbers))
     print("calibration " + json.dumps(calib_report))

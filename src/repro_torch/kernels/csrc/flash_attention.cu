@@ -61,6 +61,14 @@
 //     3.61-3.63 in one call (scripts/tune_flash_attention.py, H100 80GB
 //     HBM3 at 700 W). A cluster that multicasts one tile to two SMs would
 //     halve the traffic.
+// Head dims. D is 64, 128, 192 or 256, a multiple of 64: each of a thread's
+// NC = D / 64 output float4 columns is 64 floats from the last, and a row
+// is one 4*D-byte bulk copy (a multiple of 16 bytes). D = 192 is MLA's
+// (deepseek-v3: 128 rope-free + 64 rotary dims of q and k, v zero-padded
+// from 128 by the caller): NC = 3, 163 KB of shared memory, the rows of Q
+// and K padded by 4 floats to 196, as at the other widths. Its P.V
+// mixes v's 64 zero columns too, a third of that product's FMAs: a separate
+// v width would skip them.
 // The online softmax is the reference's, step for step: masked scores are
 // -1e30, their probabilities 0, the denominator floored at 1e-37, so a row
 // with no visible key gives 0. Rows past Skv in a ragged last tile are not
@@ -423,9 +431,10 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
 }  // namespace
 
 // q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), o (B, Sq, Hq, D): contiguous
-// float32 with 16-byte aligned bases. D is 64, 128 or 256; Hq % Hkv == 0;
-// q_offset >= 0; window < 0 means no window. Returns the CUDA error code of
-// the launch (0 on success), or -1 for a D the kernel is not built for.
+// float32 with 16-byte aligned bases. D is 64, 128, 192 or 256;
+// Hq % Hkv == 0; q_offset >= 0; window < 0 means no window. Returns the
+// CUDA error code of the launch (0 on success), or -1 for a D the kernel is
+// not built for.
 extern "C" int flash_attention_fwd_launch(const float* q, const float* k,
                                           const float* v, float* o, int B,
                                           int Sq, int Skv, int Hq, int Hkv,
@@ -440,6 +449,9 @@ extern "C" int flash_attention_fwd_launch(const float* q, const float* k,
                         window, scale, s);
     case 128:
       return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,
+                         window, scale, s);
+    case 192:
+      return launch<192>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,
                          window, scale, s);
     case 256:
       return launch<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,

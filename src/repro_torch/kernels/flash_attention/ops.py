@@ -24,7 +24,7 @@ from repro_torch.kernels.common import (check_input, count_launch,
 from repro_torch.kernels.flash_attention.ref import (
     attention_chunked, attention_chunked_bwd, attention_chunked_with_lse)
 
-HEAD_DIMS = (64, 128, 256)        # the kernel's instantiations
+HEAD_DIMS = (64, 128, 192, 256)   # the kernel's instantiations
 
 
 @functools.cache

@@ -1,9 +1,11 @@
-"""The decoder LM stack, for every layer plan but MLA.
+"""The decoder LM stack, for every layer plan of ``repro.configs``.
 
 The counterpart of ``repro.models.lm.LMModel``:
   dense  (yi-34b, qwen2-0.5b, qwen3-1.7b, granite-3-8b):  GQA + SwiGLU
   moe    (phi3.5-moe):         GQA + MoE (leading dense layers of their own
                                width and shared experts where configured)
+  moe+mla (deepseek-v3):       MLA + MoE (3 leading dense layers, a shared
+                               expert) + the MTP head
   hybrid (recurrentgemma-2b):  (RG-LRU, RG-LRU, local-attn) pattern + GeGLU
   ssm    (rwkv6-7b):           time-mix + channel-mix (attention-free)
   audio  (musicgen-large):     GQA over precomputed frame embeddings, one
@@ -21,10 +23,12 @@ write a full-size zero buffer for every layer of every leaf). With
 under ``torch.utils.checkpoint`` when a gradient is being taken, as the
 reference wraps its scan body; the tail is not wrapped, as in the
 reference. ``prefill`` applies the head to the last position only.
-``loss_fn`` is the reference's; ``forward`` sums the MoE layers' aux
-losses. The MoE layers run ``moe.moe_forward`` (the expert-parallel
-``moe_forward_sharded`` is not wired in here). MLA (deepseek-v3) raises
-``NotImplementedError``: it comes with a later slice of the port.
+``loss_fn`` is the reference's, the multi-token-prediction loss
+included where the config has the MTP head (``params["mtp"]``: one more
+dense layer over [norm(h_t); norm(embed(labels_t))]); ``forward`` sums the
+MoE layers' aux losses. The MoE layers run ``moe.moe_forward`` (the
+expert-parallel ``moe_forward_sharded`` is not wired in here).
+``cache_axes`` gives each cache leaf's logical axes, as the reference's.
 """
 from __future__ import annotations
 
@@ -94,8 +98,6 @@ def _mlp_schema(arch: ArchConfig, padded: PaddedDims,
 
 
 def _unsupported(arch: ArchConfig) -> Optional[str]:
-    if arch.attention == AttentionKind.MLA:
-        return "MLA attention"
     if arch.family not in ("dense", "moe", "hybrid", "ssm", "audio", "vlm"):
         return f"the {arch.family} family"
     return None
@@ -120,7 +122,7 @@ class LMModel:
             raise NotImplementedError(
                 f"{arch.name}: {missing} comes with a later slice of the "
                 "port; this one runs the dense, moe, hybrid, ssm, audio and "
-                "vlm plans over GQA")
+                "vlm plans")
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r} not in {REMAT}")
         self.arch = arch
@@ -165,8 +167,12 @@ class LMModel:
             # the channel mix's parameters (cm_*) live inside "tm"
             return {"ln1": ln(), "tm": rwkv_mod.rwkv_schema(arch),
                     "ln2": ln()}
-        mix = ({"rglru": rglru_mod.rglru_schema(arch)} if kind == "rglru"
-               else {"attn": attn_mod.gqa_schema(arch, self.padded)})
+        if kind == "rglru":
+            mix = {"rglru": rglru_mod.rglru_schema(arch)}
+        elif arch.attention == AttentionKind.MLA:
+            mix = {"attn": attn_mod.mla_schema(arch, self.padded)}
+        else:
+            mix = {"attn": attn_mod.gqa_schema(arch, self.padded)}
         if kind == "moe":
             return {"ln1": ln(), **mix, "ln2": ln(),
                     "moe": moe_mod.moe_schema(arch)}
@@ -198,6 +204,13 @@ class LMModel:
         else:
             for key, kind, n in self._groups():
                 s[key] = _stack_schema(self._layer_schema(kind), n)
+        if arch.mtp:
+            s["mtp"] = {
+                "proj": pdef((2 * d, d), (None, "embed"), "scaled"),
+                "norm_h": pdef((d,), ("embed",), "ones"),
+                "norm_e": pdef((d,), ("embed",), "ones"),
+                "layer": self._layer_schema("dense"),
+            }
         return s
 
     def init_params(self, seed: int = 0,
@@ -252,6 +265,10 @@ class LMModel:
         elif kind == "rglru":
             mix = rglru_mod.rglru_forward(p["rglru"], h, arch,
                                           self.kernel_mode)
+        elif arch.attention == AttentionKind.MLA:
+            mix = attn_mod.mla_forward(p["attn"], h, arch,
+                                       positions=positions,
+                                       kernel_mode=self.kernel_mode)
         else:
             window = (arch.hybrid.window
                       if kind == "local_attn" and arch.hybrid else None)
@@ -342,15 +359,38 @@ class LMModel:
     def loss_fn(self, params: Dict[str, Any], batch: Dict[str, Any],
                 z_loss: float = 0.0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(total loss, {"ce", "aux", "z"}) of next-token prediction against
-        batch["labels"]: every codebook's for audio, the text tail's for a
-        vlm batch with patches."""
-        logits, _, aux = self.forward(params, batch)
+        """(total loss, {"ce", "aux", "z"} and "mtp" with the MTP head) of
+        next-token prediction against batch["labels"]: every codebook's
+        for audio, the text tail's for a vlm batch with patches. The MTP
+        loss enters the total at weight 0.3, as in the reference."""
+        logits, hidden, aux = self.forward(params, batch)
         labels = batch["labels"]
         if self.arch.vlm and "patch_embeds" in batch:
             logits = logits[:, -labels.shape[1]:]
         loss, z = cross_entropy(logits, labels, self.arch.vocab_size, z_loss)
-        return loss + aux, {"ce": loss, "aux": aux, "z": z}
+        metrics = {"ce": loss, "aux": aux, "z": z}
+        total = loss + aux
+        if self.arch.mtp:
+            metrics["mtp"] = self._mtp_loss(params, hidden, labels)
+            total = total + 0.3 * metrics["mtp"]
+        return total, metrics
+
+    def _mtp_loss(self, params: Dict[str, Any], hidden: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+        """DeepSeek's multi-token prediction: labels[t + 1] (token t + 2)
+        from [norm(h_t); norm(embed(labels_t))] @ proj through one more
+        dense layer and the model's head."""
+        arch = self.arch
+        p = params["mtp"]
+        h = rms_norm(hidden, p["norm_h"], arch.norm_eps)
+        e = rms_norm(params["embed"][labels.long()], p["norm_e"],
+                     arch.norm_eps)
+        comb = torch.cat([h[:, :-1], e[:, :-1]], dim=-1) @ p["proj"]
+        positions = torch.arange(comb.shape[1], device=comb.device)
+        comb, _ = self._block_fwd("dense", p["layer"], comb, positions)
+        loss, _ = cross_entropy(self._head(params, comb), labels[:, 1:],
+                                arch.vocab_size)
+        return loss
 
     def prefill(self, params: Dict[str, Any], batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -370,10 +410,22 @@ class LMModel:
         if kind == "rglru":
             return rglru_mod.rglru_cache_spec(self.arch, batch,
                                               self.cache_dtype)
+        if self.arch.attention == AttentionKind.MLA:
+            return attn_mod.mla_cache_spec(self.arch, batch, cap,
+                                           self.cache_dtype)
         if kind == "local_attn":
             cap = min(cap, self.arch.hybrid.window)
         return attn_mod.gqa_cache_spec(self.arch, self.padded, batch, cap,
                                        self.cache_dtype)
+
+    def _layer_cache_axes(self, kind: str) -> Dict[str, Tuple]:
+        if kind == "rwkv":
+            return rwkv_mod.CACHE_AXES_RWKV
+        if kind == "rglru":
+            return rglru_mod.CACHE_AXES_RGLRU
+        if self.arch.attention == AttentionKind.MLA:
+            return attn_mod.CACHE_AXES_MLA
+        return attn_mod.CACHE_AXES_GQA
 
     def cache_spec(self, batch: int, cap: int) -> Dict[str, Any]:
         """{..: (shape, dtype)} in the parameters' layout, plus "len"."""
@@ -394,6 +446,25 @@ class LMModel:
             for key, kind, n in self._groups():
                 out[key] = stacked(self._layer_cache_spec(kind, batch, cap),
                                    n)
+        return out
+
+    def cache_axes(self) -> Dict[str, Any]:
+        """Each cache leaf's logical axes, in ``cache_spec``'s layout (a
+        stacked leaf leads with "layers")."""
+        plan = self.plan
+
+        def stacked(axes):
+            return {k: ("layers",) + v for k, v in axes.items()}
+
+        out: Dict[str, Any] = {"len": (None,)}
+        if plan["kind"] == "hybrid":
+            out["blocks"] = {f"sub{i}": stacked(self._layer_cache_axes(k))
+                             for i, k in enumerate(plan["pattern"])}
+            for i, k in enumerate(plan["tail"]):
+                out[f"tail{i}"] = self._layer_cache_axes(k)
+        else:
+            for key, kind, _ in self._groups():
+                out[key] = stacked(self._layer_cache_axes(kind))
         return out
 
     def init_cache(self, batch: int, cap: int,
@@ -417,6 +488,9 @@ class LMModel:
             mix, cache = rwkv_mod.time_mix_decode(p["tm"], h, cache, arch)
         elif kind == "rglru":
             mix, cache = rglru_mod.rglru_decode(p["rglru"], h, cache, arch)
+        elif arch.attention == AttentionKind.MLA:
+            mix, cache = attn_mod.mla_decode(p["attn"], h, cache, cache_len,
+                                             arch)
         else:
             # local attention: a window-sized ring buffer, constant memory
             # in context length

@@ -97,6 +97,10 @@ def rglru_cache_spec(arch: ArchConfig, batch: int, dtype=torch.bfloat16
             "conv": ((batch, h.conv_width - 1, dr), dtype)}
 
 
+CACHE_AXES_RGLRU = {"h": ("batch", "d_rnn"),
+                    "conv": ("batch", None, "d_rnn")}
+
+
 def rglru_decode(p: Dict[str, Any], x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], arch: ArchConfig
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

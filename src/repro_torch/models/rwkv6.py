@@ -147,6 +147,13 @@ def rwkv_cache_spec(arch: ArchConfig, batch: int, dtype=torch.bfloat16
             "shift_cm": ((batch, d), dtype)}
 
 
+CACHE_AXES_RWKV = {
+    "wkv": ("batch", "rwkv_heads", "head_dim", None),
+    "shift_tm": ("batch", None),
+    "shift_cm": ("batch", None),
+}
+
+
 def time_mix_decode(p: Dict[str, Any], x: torch.Tensor,
                     cache: Dict[str, torch.Tensor], arch: ArchConfig
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -1085,3 +1085,78 @@ def test_cuda_moe_forward_sharded_on_a_virtual_mesh(dev):
                                    atol=1e-5, rtol=1e-5)
     for want in (full_aux, cpu_aux):
         np.testing.assert_allclose(float(aux), float(want), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# MLA and deepseek-v3
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [333, 64])
+def test_cuda_flash_attention_at_mla_head_dim(dev, S):
+    """deepseek-v3's MLA call: q and k at head dim 128 + 64 = 192, v
+    zero-padded from 128 to 192, causal, its scale; the padded columns of
+    the output are exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(192 + S)
+    q = torch.randn((2, S, 8, 192), device=dev, generator=gen)
+    k = torch.randn((2, S, 8, 192), device=dev, generator=gen)
+    v = torch.nn.functional.pad(
+        torch.randn((2, S, 8, 128), device=dev, generator=gen), (0, 64))
+    before = common.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, scale=192 ** -0.5)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    want = attention_chunked(q, k, v, scale=192 ** -0.5)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL)
+    assert torch.equal(got[..., 128:], torch.zeros_like(got[..., 128:]))
+
+
+def _small_mla_arch():
+    """Reduced deepseek-v3 with the published MLA head widths (rope-free
+    128, rotary 64, v 128), so its attention runs the kernel at D 192 (the
+    reduced config's 16 + 8 = 24 is not one of the kernel's head dims)."""
+    import dataclasses
+    from repro_torch.configs.reduced import REDUCED
+    from repro_torch.core.config import MLAConfig
+    return dataclasses.replace(
+        REDUCED["deepseek-v3"], n_heads=2, n_kv_heads=2,
+        mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128))
+
+
+@pytest.mark.cuda
+def test_cuda_small_deepseek_matches_the_cpu(dev):
+    """The 4-layer MLA + MoE + MTP plan on the card with the kernel against
+    the same model on the CPU: logits within 1e-4 (test_torch_lm.py's
+    model bound), the losses within 1e-5 relative, absorbed decode
+    against forward within 2e-3."""
+    from repro_torch.models.lm import LMModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = _small_mla_arch()
+    cpu = LMModel(arch, device="cpu", cache_dtype=torch.float32)
+    card = LMModel(arch, device=dev, cache_dtype=torch.float32)
+    params = cpu.init_params(0)
+    pd = _to(params, dev)
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(1, arch.vocab_size, (2, 33), generator=gen)
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    batch_d = {k: v.to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        want, _, _ = cpu.forward(params, batch)
+        before = common.LAUNCHES["flash_attention"]
+        got, _, _ = card.forward(pd, batch_d)
+        assert common.LAUNCHES["flash_attention"] == before + arch.n_layers
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        want_l, want_m = cpu.loss_fn(params, batch)
+        got_l, got_m = card.loss_fn(pd, batch_d)
+        for k in ("ce", "aux", "mtp"):
+            np.testing.assert_allclose(float(got_m[k]), float(want_m[k]),
+                                       rtol=1e-5)
+        np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-5)
+        cache = card.init_cache(2, 33)
+        for step in range(32):
+            logits, cache = card.decode_step(
+                pd, cache, {"tokens": batch_d["tokens"][:, step:step + 1]})
+            np.testing.assert_allclose(logits[:, 0].cpu().numpy(),
+                                       got[:, step].cpu().numpy(),
+                                       atol=2e-3, rtol=2e-3)

@@ -544,17 +544,27 @@ def test_batched_service_dedups_hot_path(data):
         _same_bits(results[rid].value, ref, "q1-hot")
 
 
+STEAL_HOME_DELAY_S = 0.03      # per morsel, the home pool's straggle
+
+
 def test_work_steal_counters(data):
+    """DENSE puts all 48 morsels on one pool, and the idle pool steals.
+    The home pool straggles by STEAL_HOME_DELAY_S before each morsel (the
+    scheduler's own fault hook), so it cannot drain its queue (1.44 s of
+    delay alone) before the idle pool's worker wakes from its 0.1 s wait:
+    the steal does not rest on which thread the host runs first."""
     ref_data, port_data = data
     sched = MorselScheduler(n_pools=2, workers_per_pool=1,
                             placement=ThreadPlacement.DENSE,
-                            morsel_rows=500, started=False)
+                            morsel_rows=500, started=False,
+                            faults=ServiceFaultInjector(
+                                straggle_pool=(0, STEAL_HOME_DELAY_S)))
     task = sched.build_task(T.LOGICAL_QUERIES["q1"], port_data.tables,
                             TP.ExecutionContext(executor="xla"))
     assert len(task.morsels) == 48
     sched.submit(task)
     homes = [m.home_pool for m in task.morsels]
-    assert len(set(homes)) == 1
+    assert len(set(homes)) == 1 and homes[0] == 0   # the straggling pool
     sched.start()
     got = task.wait(timeout=120)
     st = sched.stats()
