@@ -94,6 +94,25 @@ points:
     rwkv6-7b at full width cut to 2 layers, one loss and backward with
     the ``wkv6`` kernel against the plain forward; and the
     checkpoint/restart drill of reduced recurrentgemma-2b on the card;
+  * the data-parallel step (``runtime.dp_step.make_dp_train_step``): (A)
+    recurrentgemma-2b at full width and depth, 1 x 4096, over a
+    torch.distributed group of one rank on NCCL (``core.dist``): one
+    uncompressed DP step bit-equal to ``train_loop``'s step, then 3 steps
+    with int8 gradient compression and error feedback (16
+    ``flash_attention`` and 52 ``rglru_scan`` launches a step; every
+    leaf's deq - target within half a block scale and its residual
+    exactly target - q * scale in the first step; step and compression
+    ms, the bytes each collective was handed, the peak); (B) the same
+    width cut to 3 layers on a 4-rank virtual mesh, global batch 4 x
+    1024, 3 steps: uncompressed DP against one rank on the whole batch
+    (loss and parameters within 1e-5), kernels against plain versions,
+    and the compressed step's synced gradients equal to the scheme's
+    dequant(sum q_i / n, sum scale_i / n) of the ranks' own quantized
+    values, the ranks' targets averaging to the uncompressed gradients,
+    and within the scheme's bound of the uncompressed ones; (C)
+    phi3.5-moe at full width, 2 layers, 1 x 4096, through
+    ``LMModel(moe_mesh=VirtualMesh(8))`` against the same model on one
+    device, under the flip rule;
   * phi3.5-moe at full width (d_model 4096, 16 experts top-2 of 6400),
     depth cut to 12 of 32 layers (15.9B fp32 parameters): one 2 x 4096
     prefill (12 ``flash_attention`` launches, expert ids and dropped
@@ -134,7 +153,8 @@ device it exits 1 and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
 
 The last lines of standard output are the MLA and MoE phases' numbers,
-the training step's numbers, the calibration report, the kernels' JSON
+the training step's numbers, the DP phase's numbers, the calibration
+report, the kernels' JSON
 record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -3360,6 +3380,18 @@ def step_probe(train_loop):
         all(m for m, g in zip(moved, live) if g) and any(moved)))
 
 
+def train_launch_plan(plan):
+    """{kernel: launches} of one loss and backward of a hybrid plan with
+    remat="block": the checkpointed super-blocks run their kernels'
+    forwards twice (the pass and the recompute), the unwrapped tail once;
+    the scan's reversed pass once per RG-LRU layer."""
+    pat = plan["pattern"]
+    return {"flash_attention": plan["n_super"] * pat.count("local_attn") * 2
+            + plan["tail"].count("local_attn"),
+            "rglru_scan": plan["n_super"] * pat.count("rglru") * 3
+            + plan["tail"].count("rglru") * 2}
+
+
 def lm_train_phase(dev):
     """recurrentgemma-2b at full width and depth: step A (kernels against
     plain versions), step B (``train`` with the kernels, the main path,
@@ -3383,15 +3415,7 @@ def lm_train_phase(dev):
     arch = get_arch(TRAIN_ARCH)
     model = LMModel(arch, device=dev)              # remat="block"
     plain = LMModel(arch, device=dev, kernel_mode="ref")
-    plan = model.plan
-    pat = plan["pattern"]
-    # the checkpointed super-blocks run their kernels' forwards twice (the
-    # pass and the recompute), the unwrapped tail once; the scan's
-    # reversed pass once per RG-LRU layer
-    want = {"flash_attention": plan["n_super"] * pat.count("local_attn") * 2
-            + plan["tail"].count("local_attn"),
-            "rglru_scan": plan["n_super"] * pat.count("rglru") * 3
-            + plan["tail"].count("rglru") * 2}
+    want = train_launch_plan(model.plan)
     n_params = param_count(model.schema())
     batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
         arch, TRAIN_B, TRAIN_S, step=0, seed=SEED).items()}
@@ -3583,6 +3607,611 @@ def train_phase(dev):
         f"rwkv6-7b {marks[2] - marks[1]:.3f}, FT drill "
         f"{marks[3] - marks[2]:.3f})")
     return per_step, times, errs, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: the data-parallel train step (runtime/dp_step.py)
+# ---------------------------------------------------------------------------
+# (A) recurrentgemma-2b at full width and depth, 1 x 4096 as phase 10, on
+# a torch.distributed group of one rank over DP_BACKEND
+DP_BACKEND = "nccl"
+DP_STEPS = 3
+DP_GROUP_TIMEOUT = 300.0                  # seconds, every collective
+# (B) 4 ranks of a virtual mesh, full width cut to one super-block (3 of
+# 26 layers: rglru, rglru, local_attn), global batch 4 x 1024; the
+# uncompressed DP step against one rank on the whole batch: loss and
+# parameters within 1e-5 (relative; the parameters' L2 distance)
+DP_B_RANKS, DP_B_LAYERS, DP_B_BATCH, DP_B_S = 4, 3, 4, 1024
+DP_B_TOL = 1e-5
+# (C) phi3.5-moe at full width, 2 of 32 layers, 1 x 4096 tokens, through
+# LMModel's moe_mesh on MOE_EP_SHARDS virtual shards at MOE_EP_FACTOR
+DP_C_LAYERS, DP_C_S = 2, 4096
+
+
+@contextlib.contextmanager
+def dp_probe(check_steps=()):
+    """Wrap ``compression.compress_leaf`` (here, never in the package):
+    CUDA events around each call, summed per step (``rec["ms"]``, call
+    ``rec["next_step"]()`` between steps), and in the steps of
+    ``check_steps`` each leaf held on one rank: every element of
+    deq - target within half its block's scale (plus the target's float32
+    rounding), and the new residual exactly target - q * scale rounded
+    once, chunk by chunk. Returns the record."""
+    import torch
+    from repro_torch.optim import compression
+    orig = compression.compress_leaf
+    rec = dict(step=0, events=[[]], leaves_held=0, worst_share=0.0)
+
+    def held_leaf(target, q, scale, deq, resid, block):
+        s = scale.repeat_interleave(block)[:target.numel()]
+        t = target.reshape(-1)
+        limit = s * (0.5 + 2.0 ** -15)
+        share = float(((deq.reshape(-1).float() - t).abs() / limit).max())
+        want = (t.double() - q[:t.numel()].double() * s.double()).float()
+        if share > 1.0 or not torch.equal(resid.reshape(-1), want):
+            raise AssertionError(
+                f"compressed psum, leaf of {t.numel()} values: deq - target "
+                f"reaches {share!r} of half a scale, or the residual is not "
+                f"target - q * scale")
+        rec["worst_share"] = max(rec["worst_share"], share)
+
+    def probe(g, e, comm, block=256, out=None):
+        check = rec["step"] in check_steps
+        if check:
+            g0, e0 = g.detach().clone(), e.clone()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = orig(g, e, comm, block, out)
+        ev[1].record()
+        rec["events"][-1].append(ev)
+        if check:
+            g0, d0 = (x.view(1) if x.dim() == 0 else x for x in (g0, res[0]))
+            ef, rf = e0.view(-1), res[1].view(-1)
+            row = ef.numel() // max(1, g0.shape[0])
+            for r0, r1 in compression.row_chunks(g.shape, block):
+                lo, hi = r0 * row, r1 * row
+                target = g0[r0:r1].reshape(-1).float() + ef[lo:hi]
+                q, scale = compression.quantize_int8(target, block)
+                held_leaf(target, q, scale, d0[r0:r1].reshape(-1),
+                          rf[lo:hi], block)
+            rec["leaves_held"] += 1
+            del g0, e0, d0
+        return res
+
+    def next_step():
+        rec["step"] += 1
+        rec["events"].append([])
+
+    rec["next_step"] = next_step
+    compression.compress_leaf = probe
+    try:
+        yield rec
+    finally:
+        compression.compress_leaf = orig
+    rec["ms"] = [sum(a.elapsed_time(b) for a, b in evs)
+                 for evs in rec["events"] if evs]
+
+
+def traffic_delta(before, after):
+    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
+            for k, v in after.items()}
+
+
+def dp_main_path(dev):
+    """(A): recurrentgemma-2b at full width and depth, 1 x 4096, through
+    ``make_dp_train_step`` over a torch.distributed group of one rank on
+    DP_BACKEND. An uncompressed DP step against ``train_loop``'s step on
+    the same params and batch (the parameters bit for bit: the pmean of
+    one rank is exact); then the main path, DP_STEPS compressed steps with
+    the launch counts zeroed just before and read just after, each leaf's
+    compression held in the first step (``dp_probe``), the peak under
+    TRAIN_PEAK_GIB. Returns (launches per step, the record)."""
+    import gc
+    import math
+    import statistics
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.core import dist as tdist
+    from repro_torch.core.config import (LM_SHAPES, RunConfig,
+                                         ShardingConfig, TrainConfig)
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import dp_step, train_loop
+    arch = get_arch(TRAIN_ARCH)
+    model = LMModel(arch, device=dev)
+    want = train_launch_plan(model.plan)
+    tcfg = TrainConfig(warmup_steps=TRAIN_WARMUP)
+    cfg = {c: RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                        sharding=ShardingConfig(gradient_compression=c),
+                        train=tcfg) for c in (False, True)}
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, TRAIN_B, TRAIN_S, step=s, seed=SEED).items()}
+        for s in range(DP_STEPS)]
+    log(f"dp (A): {TRAIN_ARCH} at full width and depth, batch {TRAIN_B} x "
+        f"{TRAIN_S}, make_dp_train_step over torch.distributed, backend "
+        f"{DP_BACKEND} (chosen here, not a fallback), world size 1, "
+        f"group timeout {DP_GROUP_TIMEOUT} s")
+    marks = [time.perf_counter()]
+    store_dir = tempfile.mkdtemp(prefix="dp_store_")
+    store = dist.FileStore(os.path.join(store_dir, "store"), 1)
+    with tdist.process_group(DP_BACKEND, rank=0, world_size=1, store=store,
+                             timeout=DP_GROUP_TIMEOUT) as mesh:
+        log(f"dp (A): group up: backend {dist.get_backend()}, rank "
+            f"{mesh.rank} of {mesh.n}")
+        # the uncompressed DP step against train_loop's step, bit for bit
+        params = model.init_params(seed=SEED)
+        state = adamw.init(params, tcfg)
+        train_loop.make_train_step(model, cfg[False], total_steps=DP_STEPS)(
+            params, state, batches[1], 1)
+        ref = [v.cpu() for v in leaves(params)]
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init_params(seed=SEED)
+        state = adamw.init(params, tcfg)
+        dp_step.make_dp_train_step(model, cfg[False], mesh,
+                                   total_steps=DP_STEPS)(
+            params, state, None, batches[1], 1)
+        differ = sum(not torch.equal(v, r.to(dev))
+                     for v, r in zip(leaves(params), ref))
+        log(f"dp (A): one uncompressed DP step vs train_loop's step on the "
+            f"same params and batch (step 1): {differ} of {len(ref)} "
+            f"parameter leaves differ in any bit")
+        if differ:
+            raise AssertionError(f"dp (A): the uncompressed DP step parts "
+                                 f"from train_loop's in {differ} leaves")
+        del params, state, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+
+        # the main path: DP_STEPS compressed steps
+        params = model.init_params(seed=SEED)
+        state = adamw.init(params, tcfg)
+        errors = dp_step.init_error_feedback(params, mesh)
+        step_fn = dp_step.make_dp_train_step(model, cfg[True], mesh,
+                                             total_steps=DP_STEPS)
+        steps, per_step, traffic, losses = [], [], [], []
+        with dp_probe(check_steps=(0,)) as rec:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            common.reset_launches()             # just before the path
+            for s in range(DP_STEPS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                before = dict(common.LAUNCHES)
+                t_before = {k: dict(v) for k, v in mesh.comm.traffic.items()}
+                ev[0].record()
+                params, state, errors, m = step_fn(params, state, errors,
+                                                   batches[s], s)
+                ev[1].record()
+                steps.append(ev)
+                per_step.append({n: c - before[n]
+                                 for n, c in common.LAUNCHES.items()})
+                traffic.append(traffic_delta(t_before, mesh.comm.traffic))
+                losses.append(m["loss"])
+                rec["next_step"]()
+                if s == 0:      # step 0 holds the checks' copies of a leaf
+                    torch.cuda.synchronize()
+                    peak_checked = torch.cuda.max_memory_allocated() / 2**30
+                    torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            launches = dict(common.LAUNCHES)    # just after it
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        marks.append(time.perf_counter())
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    losses = [float(x) for x in losses]
+    n_params = sum(v.numel() for v in leaves(params))
+    resid_norm = float(torch.sqrt(sum(e.double().square().sum()
+                                      for e in leaves(errors))))
+    del params, state, errors, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, got in enumerate(per_step):
+        if {n: got[n] for n in want} != want or got["wkv6"]:
+            raise AssertionError(f"dp (A) step {i} launched {got}, want "
+                                 f"{want}")
+    total = {n: launches[n] for n in want}
+    if total != {n: DP_STEPS * c for n, c in want.items()}:
+        raise AssertionError(f"dp (A) launched {launches} in "
+                             f"{DP_STEPS} steps, want {want} a step")
+    if not all(map(math.isfinite, losses)) or \
+            rec["leaves_held"] != len(list(leaves(model.schema()))):
+        raise AssertionError(f"dp (A): losses {losses}, leaves held "
+                             f"{rec['leaves_held']}")
+    if max(peak, peak_checked) >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"dp (A) peak {peak:.3f} GiB ({peak_checked:.3f} "
+                             f"in the checked step) reaches {TRAIN_PEAK_GIB}")
+    values = n_params
+    moved = traffic[-1]
+    numbers = dict(
+        backend=DP_BACKEND, world_size=1, parameters=n_params,
+        step_ms=statistics.median(step_ms[1:]), step_ms_each=step_ms,
+        compression_ms=statistics.median(rec["ms"][1:]),
+        compression_ms_each=rec["ms"], losses=losses, peak_gib=peak,
+        peak_gib_checked_step=peak_checked,
+        tokens_per_s=TRAIN_B * TRAIN_S / statistics.median(step_ms[1:])
+        * 1e3, launches_per_step={n: per_step[-1][n] for n in want},
+        bytes_per_step=moved,
+        bytes_per_value={k: v["bytes"] / values for k, v in moved.items()},
+        bf16_psum_bytes_per_value=2.0, fp32_psum_bytes_per_value=4.0,
+        worst_share_of_half_scale=rec["worst_share"],
+        leaves_held=rec["leaves_held"], residual_l2=resid_norm,
+        seconds_bits_gate=marks[1] - marks[0],
+        seconds_main_path=marks[2] - marks[1])
+    log(f"dp (A) main path: {json.dumps(numbers)}; bytes are what this "
+        f"rank handed to each torch.distributed call in the last step "
+        f"(payload; at world size 1 none crosses a link)")
+    return numbers["launches_per_step"], numbers
+
+
+def dp_virtual_mesh(dev):
+    """(B): recurrentgemma-2b at full width cut to one super-block on a
+    4-rank virtual mesh, global batch 4 x 1024, DP_STEPS steps with and
+    without compression and one rank on the whole batch; a kernels-vs-
+    plain DP step; the compressed step's synced gradients held to the
+    scheme's own arithmetic on the ranks' quantized values (exactly), the
+    ranks' targets to the uncompressed gradients, and the synced
+    gradients to the uncompressed ones within the scheme's bound.
+    Returns the record."""
+    import dataclasses
+    import gc
+    import threading
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import (LM_SHAPES, RunConfig,
+                                         ShardingConfig, TrainConfig)
+    from repro_torch.core.params import param_count
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw, compression
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import dp_step, train_loop
+    n = DP_B_RANKS
+    arch = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=DP_B_LAYERS)
+    model = LMModel(arch, device=dev)
+    plain = LMModel(arch, device=dev, kernel_mode="ref")
+    per_rank = train_launch_plan(model.plan)
+    tcfg = TrainConfig(warmup_steps=TRAIN_WARMUP)
+    cfg = {c: RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                        sharding=ShardingConfig(gradient_compression=c),
+                        train=tcfg) for c in (False, True)}
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, DP_B_BATCH, DP_B_S, step=s, seed=SEED).items()}
+        for s in range(DP_STEPS)]
+    mesh = VirtualMesh(n, dev)
+    n_params = param_count(model.schema())
+    tree_gib = n_params * 4 / 2**30
+    log(f"dp (B): {TRAIN_ARCH} at full width, {DP_B_LAYERS} of 26 layers "
+        f"({n_params} parameters), {n} virtual ranks, global batch "
+        f"{DP_B_BATCH} x {DP_B_S}, {DP_STEPS} steps; reckoned: the shared "
+        f"params, master and moments {4 * tree_gib:.3f} GiB, the ranks' "
+        f"grads {n * tree_gib:.3f} and residuals {n * tree_gib:.3f}, "
+        f"{(4 + 2 * n) * tree_gib:.3f} GiB before activations")
+    captured = {}
+    orig_update = adamw.update
+
+    def capture_update(tag):
+        def update(grads, st, params, lr, c):
+            if tag not in captured:
+                captured[tag] = [g.detach().clone() for g in
+                                 leaves(grads)]
+            return orig_update(grads, st, params, lr, c)
+        return update
+
+    peaks = {}
+
+    def run(step_fn, tag, with_errors=False, launches=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init_params(seed=SEED)
+        state = adamw.init(params, tcfg)
+        errors = (dp_step.init_error_feedback(params, mesh)
+                  if with_errors else None)
+        if tag in ("dp", "c"):      # step 0's synced gradients
+            adamw.update = capture_update(tag)
+        losses, metrics0 = [], None
+        try:
+            for s in range(DP_STEPS):
+                before = dict(common.LAUNCHES)
+                if tag == "one":
+                    params, state, m = step_fn(params, state, batches[s], s)
+                else:
+                    params, state, errors, m = step_fn(params, state, errors,
+                                                       batches[s], s)
+                if launches is not None:
+                    launches.append({k: common.LAUNCHES[k] - before[k]
+                                     for k in per_rank})
+                losses.append(float(m["loss"]))
+                if s == 0:
+                    metrics0 = {k: float(v) for k, v in m.items()}
+        finally:
+            adamw.update = orig_update
+        del state, errors
+        torch.cuda.synchronize()
+        peaks[tag] = torch.cuda.max_memory_allocated() / 2**30
+        return params, losses, metrics0
+
+    t0 = time.perf_counter()
+    dp_launches = []
+    p_u, loss_u, m_u = run(dp_step.make_dp_train_step(
+        model, cfg[False], mesh, total_steps=DP_STEPS), "dp", False,
+        dp_launches)
+    want = {k: n * c for k, c in per_rank.items()}
+    if any(got != want for got in dp_launches):
+        raise AssertionError(f"dp (B) steps launched {dp_launches}, want "
+                             f"{want}")
+    p_1, loss_1, _ = run(train_loop.make_train_step(
+        model, cfg[False], total_steps=DP_STEPS), "one")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_u, loss_1))
+    diff2 = sum(float((a.double() - b.double()).square().sum())
+                for a, b in zip(leaves(p_u), leaves(p_1)))
+    norm2 = sum(float(b.double().square().sum()) for b in leaves(p_1))
+    param_rel = (diff2 / norm2) ** 0.5
+    worst_abs = max(float((a - b).abs().max())
+                    for a, b in zip(leaves(p_u), leaves(p_1)))
+    del p_1
+    log(f"dp (B) uncompressed DP on {n} ranks vs one rank on the whole "
+        f"batch, {DP_STEPS} steps: losses {loss_u} / {loss_1} (largest "
+        f"rel {loss_rel!r}), parameters' relative L2 distance "
+        f"{param_rel!r}, largest |difference| {worst_abs!r}")
+    if not (loss_rel <= DP_B_TOL and param_rel <= DP_B_TOL):
+        raise AssertionError(f"dp (B): DP and one rank part: loss rel "
+                             f"{loss_rel!r}, params rel {param_rel!r} "
+                             f"(limit {DP_B_TOL})")
+    del p_u
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernels vs plain versions: one DP step at step 0 (lr 0) each
+    _, _, m_plain = run(dp_step.make_dp_train_step(
+        plain, cfg[False], mesh, total_steps=DP_STEPS), "plain")
+    k_loss_rel = abs(m_u["loss"] - m_plain["loss"]) / abs(m_plain["loss"])
+    k_norm_rel = abs(m_u["grad_norm"] - m_plain["grad_norm"]) / \
+        abs(m_plain["grad_norm"])
+    log(f"dp (B) step 0 with the kernels vs the plain versions: loss "
+        f"{m_u['loss']!r} / {m_plain['loss']!r} (rel {k_loss_rel!r}), grad "
+        f"norm {m_u['grad_norm']!r} / {m_plain['grad_norm']!r} (rel "
+        f"{k_norm_rel!r})")
+    if not (k_loss_rel <= TRAIN_LOSS_TOL and k_norm_rel <= TRAIN_NORM_TOL):
+        raise AssertionError(f"dp (B): kernels and plain versions part: "
+                             f"loss rel {k_loss_rel!r}, grad norm rel "
+                             f"{k_norm_rel!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # compressed: step 0's quantization as quantize_int8 returns it
+    # inside compress_leaf, per (leaf index, chunk): the ranks' int8 values
+    # summed as int32 (exact in any order), each rank's block scales, and
+    # the ranks' targets summed; then the synced gradients against the
+    # scheme's own arithmetic and against the uncompressed ones
+    quant, calls, current = {}, [0] * n, {}
+    orig_leaf, orig_quant = compression.compress_leaf, \
+        compression.quantize_int8
+
+    def leaf_probe(g, e, comm, *a, **kw):
+        current[threading.get_ident()] = [calls[comm.rank], comm.rank, 0]
+        calls[comm.rank] += 1
+        return orig_leaf(g, e, comm, *a, **kw)
+
+    def quant_probe(x, block=256):
+        q, s = orig_quant(x, block)
+        if "c" not in captured:           # step 0 (the update captures)
+            cur = current[threading.get_ident()]
+            k, r, j = cur
+            cur[2] += 1
+            rec = quant.get((k, j))
+            if rec is None:
+                rec = quant[(k, j)] = dict(
+                    q=torch.zeros(q.shape, dtype=torch.int32, device=dev),
+                    s=[None] * n, t=torch.zeros_like(x))
+            rec["q"] += q
+            rec["s"][r] = s
+            rec["t"] += x
+        return q, s
+
+    compression.compress_leaf = leaf_probe
+    compression.quantize_int8 = quant_probe
+    try:
+        p_c, loss_c, _ = run(dp_step.make_dp_train_step(
+            model, cfg[True], mesh, total_steps=DP_STEPS), "c", True)
+    finally:
+        compression.compress_leaf = orig_leaf
+        compression.quantize_int8 = orig_quant
+    del p_c
+    g_u, g_c = captured.pop("dp"), captured.pop("c")
+    n_t = torch.full((), float(n), device=dev)
+    worst, over_scale, n_vals, d2, u2 = 0.0, 0, 0, 0.0, 0.0
+    not_exact, target_err = 0, 0.0
+    for k, (gu, gc_) in enumerate(zip(g_u, g_c)):
+        recs = []
+        while (k, len(recs)) in quant:
+            recs.append(quant.pop((k, len(recs))))
+        # the scheme: dequant(sum q_i / n, sum scale_i / n), the scales
+        # summed in rank order as the mesh's psum sums them
+        deq = []
+        for rec in recs:
+            s_sum = rec["s"][0]
+            for sr in rec["s"][1:]:
+                s_sum = s_sum + sr
+            deq.append(compression.dequantize_int8(
+                rec["q"].float() / n_t, s_sum / n_t, (rec["t"].numel(),)))
+        not_exact += int((torch.cat(deq) != gc_.reshape(-1)).sum())
+        del deq
+        # the ranks' targets (step 0: their own gradients) average to the
+        # uncompressed synced gradient
+        t_mean = torch.cat([rec["t"] for rec in recs]) * (1.0 / n)
+        top = max(1e-30, float(gu.abs().max()))
+        target_err = max(target_err, float(
+            (t_mean - gu.reshape(-1)).abs().max()) / top)
+        del t_mean
+        s = torch.stack([torch.cat([rec["s"][r] for rec in recs])
+                         for r in range(n)])          # (ranks, blocks)
+        del recs
+        s_mean = s.mean(0)
+        bound = s_mean / 2 + 254 * (s - s_mean).abs().mean(0)
+        nv = gu.numel()
+        b = bound.repeat_interleave(256)[:nv]
+        sm = s_mean.repeat_interleave(256)[:nv]
+        d = (gc_.reshape(-1) - gu.reshape(-1)).abs()
+        slop = 2.0 ** -20 * (gc_.reshape(-1).abs() + gu.reshape(-1).abs())
+        worst = max(worst, float((d / (b + slop)).max()))
+        over_scale += int((d > sm).sum())
+        n_vals += nv
+        d2 += float(d.double().square().sum())
+        u2 += float(gu.double().square().sum())
+    if quant:
+        raise AssertionError(f"dp (B): {len(quant)} quantized chunks match "
+                             "no synced gradient")
+    del g_u, g_c
+    rel_err = (d2 / u2) ** 0.5
+    log(f"dp (B) compressed vs uncompressed, the synced gradients of step "
+        f"0: {not_exact} of {n_vals} values differ from dequant(sum q_i / "
+        f"n, sum scale_i / n) of the ranks' own int8 values; the ranks' "
+        f"targets average to the uncompressed gradients within "
+        f"{target_err!r} of each leaf's largest |grad| (limit {DP_B_TOL}); "
+        f"relative L2 error {rel_err!r}; {over_scale} of {n_vals} values "
+        f"off by more than their block's mean scale; the largest share of "
+        f"the bound (mean scale / 2 + 254 x mean |scale_i - mean scale|) "
+        f"{worst!r}; losses compressed {loss_c} / uncompressed {loss_u}")
+    if not_exact:
+        raise AssertionError(f"dp (B): {not_exact} synced values are not "
+                             "the scheme's dequantized mean")
+    if target_err > DP_B_TOL:
+        raise AssertionError(f"dp (B): the ranks' targets average "
+                             f"{target_err!r} away from the uncompressed "
+                             "gradients")
+    if worst > 1.0:
+        raise AssertionError(f"dp (B): a compressed gradient passes the "
+                             f"quantization bound ({worst!r} of it)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ranks=n, layers=DP_B_LAYERS, parameters=n_params,
+                batch=[DP_B_BATCH, DP_B_S], losses_dp=loss_u,
+                losses_one_rank=loss_1, losses_compressed=loss_c,
+                loss_rel=loss_rel, param_rel_l2=param_rel,
+                param_worst_abs=worst_abs, kernels_vs_plain_loss_rel=k_loss_rel,
+                kernels_vs_plain_norm_rel=k_norm_rel,
+                compressed_rel_l2=rel_err,
+                compressed_values_not_exact=not_exact,
+                compressed_target_mean_err=target_err,
+                compressed_share_over_one_scale=over_scale / n_vals,
+                compressed_worst_share_of_bound=worst,
+                launches_per_step=dp_launches[-1], peak_gib_by_run=peaks,
+                seconds=time.perf_counter() - t0)
+
+
+def dp_moe_mesh(dev):
+    """(C): phi3.5-moe at full width, DP_C_LAYERS layers, 1 x DP_C_S
+    tokens, through ``LMModel(moe_mesh=VirtualMesh(MOE_EP_SHARDS))``
+    against the same model without the mesh, at
+    capacity factor MOE_EP_FACTOR (neither dispatch drops), logits and aux
+    under the flip rule. Returns the record."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.models.lm import LMModel
+    n = MOE_EP_SHARDS
+    arch = with_capacity(dataclasses.replace(get_arch(MOE_ARCH),
+                                             n_layers=DP_C_LAYERS),
+                         MOE_EP_FACTOR)
+    m = arch.moe
+    sharded = LMModel(arch, moe_mesh=VirtualMesh(n, dev), device=dev)
+    one = LMModel(arch, device=dev)
+    params = one.init_params(seed=SEED)
+    batch = {"tokens": torch.from_numpy(synth_batch(
+        arch, 1, DP_C_S, step=0, seed=SEED)["tokens"]).to(dev)}
+    t0 = time.perf_counter()
+    rec_mesh, rec_one = [], []
+    orig = sharded._moe_sharded
+    el, sl = m.n_experts // n, DP_C_S // n
+    cap = max(8, -(-int(sl * m.top_k / n * m.capacity_factor) // 8) * 8)
+
+    def recording(p, h):
+        ids = torch.cat([expert_ids(h[:, i * sl:(i + 1) * sl], p["router"],
+                                    m.top_k) for i in range(n)], dim=1)
+        dropped = 0
+        for i in range(n):
+            owner = ids[:, i * sl:(i + 1) * sl].reshape(-1) // el
+            counts = torch.bincount(owner, minlength=n)
+            dropped += int(torch.clamp(counts - cap, min=0).sum())
+        rec_mesh.append(dict(ids=ids, capacity=cap, dropped=dropped))
+        return orig(p, h)
+
+    sharded._moe_sharded = recording
+    with torch.no_grad():
+        common.reset_launches()                 # just before the path
+        got, _, aux = sharded.forward(params, batch)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in common.LAUNCHES.items() if v}
+        with record_routing(rec_one):
+            want, _, want_aux = one.forward(params, batch)
+    if launched != {"flash_attention": DP_C_LAYERS} or \
+            len(rec_mesh) != DP_C_LAYERS:
+        raise AssertionError(f"dp (C): launched {launched}, "
+                             f"{len(rec_mesh)} sharded MoE layers")
+    flips = routing_flips(rec_one, rec_mesh)
+    dropped = [max(a["dropped"], b["dropped"])
+               for a, b in zip(rec_one, rec_mesh)]
+    reach = flip_reach(flips, dropped, 1, DP_C_S)
+    flip_gate(flips, held_shares(reach), "dp (C) moe_mesh")
+    err, share = held_unreached(got[0], want[0], reach[0],
+                                "dp (C) logits, moe_mesh vs one device")
+    aux_rel = abs(float(aux) - float(want_aux)) / abs(float(want_aux))
+    if not flips and aux_rel > 1e-5:
+        raise AssertionError(f"dp (C): aux {float(aux)!r} vs "
+                             f"{float(want_aux)!r}")
+    out = dict(shards=n, layers=DP_C_LAYERS, tokens=DP_C_S,
+               capacity_factor=m.capacity_factor, dropped=dropped,
+               flips=len(flips), flip_positions=flips[:20],
+               logits_max_abs_err=err, logits_limit_share=share,
+               aux_mesh=float(aux), aux_one=float(want_aux),
+               aux_rel=aux_rel, launches=launched["flash_attention"],
+               seconds=time.perf_counter() - t0)
+    log(f"dp (C) {MOE_ARCH} through LMModel's moe_mesh on {n} virtual "
+        f"shards vs one device: {json.dumps(out)}")
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_phase(dev):
+    """The data-parallel step on the card: (A) the main path, (B) 4
+    virtual ranks, (C) the expert-parallel wiring. Returns ({kernel:
+    launches per DP step of (A)}, the phase's numbers)."""
+    import gc
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"dp phase: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        "allocated before it")
+    per_step, a = dp_main_path(dev)
+    peak_line("dp (A)")
+    marks = [time.perf_counter()]
+    b = dp_virtual_mesh(dev)
+    peak_line("dp (B)")
+    marks.append(time.perf_counter())
+    c = dp_moe_mesh(dev)
+    peak_line("dp (C)")
+    marks.append(time.perf_counter())
+    log(f"dp phase: {marks[-1] - t0:.3f} s ((A) {marks[0] - t0:.3f}, (B) "
+        f"{marks[1] - marks[0]:.3f}, (C) {marks[2] - marks[1]:.3f})")
+    return per_step, dict(main_path=a, virtual_mesh=b, moe_mesh=c,
+                          seconds=marks[-1] - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -4227,6 +4856,15 @@ def main() -> int:
     wkv_kernel = rwkv_phase(dev)
     torch.cuda.reset_peak_memory_stats()
     train_launches, train_times, grad_errs, train_numbers = train_phase(dev)
+    torch.cuda.reset_peak_memory_stats()
+    dp_launches, dp_numbers = dp_phase(dev)
+    torch.cuda.reset_peak_memory_stats()
+    for row in lm_kernels:
+        row["launches_dp_step"] = dp_launches[row["name"]]
+        row["launches_dp_virtual_mesh_step"] = dp_numbers["virtual_mesh"][
+            "launches_per_step"][row["name"]]
+    lm_kernels[0]["launches_dp_moe_mesh"] = dp_numbers["moe_mesh"][
+        "launches"]
     for row in lm_kernels + [wkv_kernel]:
         row["launches_train_step"] = train_launches[row["name"]]
     lm_kernels[0].update(backward=dict(
@@ -4294,6 +4932,7 @@ def main() -> int:
     print("mla " + json.dumps(mla_numbers))
     print("moe " + json.dumps(moe_numbers))
     print("train " + json.dumps(train_numbers))
+    print("dp " + json.dumps(dp_numbers))
     print("calibration " + json.dumps(calib_report))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -37,8 +37,8 @@ and ``run`` re-raises it in the caller. Each wait is bounded by
 ``timeout`` seconds.
 
 All shards' buffers are alive at once, so the device holds about n times
-one shard's buffers. A communicator over ``torch.distributed`` for real
-multi-GPU meshes would offer the same methods.
+one shard's buffers. ``core.dist`` offers the same methods over
+``torch.distributed``, one process per rank.
 """
 from __future__ import annotations
 
@@ -195,6 +195,11 @@ class VirtualMesh:
         self.n = n
         self.device = torch.device(device) if device is not None else None
         self.timeout = timeout
+
+    @property
+    def local_ranks(self) -> Sequence[int]:
+        """The ranks this process runs: all of them."""
+        return tuple(range(self.n))
 
     def run(self, fn: Callable[[Communicator, Any], Any],
             inputs: Sequence[Any]) -> List[Any]:

@@ -26,9 +26,24 @@ reference. ``prefill`` applies the head to the last position only.
 ``loss_fn`` is the reference's, the multi-token-prediction loss
 included where the config has the MTP head (``params["mtp"]``: one more
 dense layer over [norm(h_t); norm(embed(labels_t))]); ``forward`` sums the
-MoE layers' aux losses. The MoE layers run ``moe.moe_forward`` (the
-expert-parallel ``moe_forward_sharded`` is not wired in here).
-``cache_axes`` gives each cache leaf's logical axes, as the reference's.
+MoE layers' aux losses. ``cache_axes`` gives each cache leaf's logical
+axes, as the reference's.
+
+``tp`` pads head counts, vocab and FFN widths as the reference pads them
+for tensor parallelism over that many ranks (``PaddedDims.for_tp``), so
+that the schema, and ``launch.sharding_plan``'s specs over it, are the
+reference's. With ``moe_mesh`` (a ``core.vmesh.VirtualMesh`` of n
+shards) each MoE layer of a full-sequence pass is the reference's
+sequence-parallel ``shard_map`` dispatch: its tokens split into n
+sequence blocks, shard i takes block i and a view of experts
+[i E/n, (i + 1) E/n), ``moe.moe_forward_sharded`` runs on the mesh, the
+blocks are put back together and the shared experts are added outside.
+Decode keeps the one-device dispatch, as the reference's. The
+reference's ``sequence_parallel``, ``data_axes`` and ``expert_axes``
+name the mesh axes of its sharding constraints and of that
+``shard_map``; the virtual mesh has one axis and one device places no
+constraint, so the port has no such arguments: ``moe_mesh`` alone
+selects the sharded dispatch.
 """
 from __future__ import annotations
 
@@ -38,7 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import (ArchConfig, AttentionKind, PaddedDims,
-                                     RopeKind, resolve_device)
+                                     RopeKind, pad_to, resolve_device)
 from repro_torch.core.params import ParamDef, init_params, pdef
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -112,9 +127,10 @@ class LMModel:
     ("none" | "block") whether a pass that takes a gradient recomputes
     each stacked layer (super-block) in the backward."""
 
-    def __init__(self, arch: ArchConfig, *,
+    def __init__(self, arch: ArchConfig, tp: int = 1, *,
                  kernel_mode: Optional[str] = None,
                  remat: str = "block",
+                 moe_mesh=None,
                  cache_dtype: torch.dtype = torch.bfloat16,
                  device: Union[None, str, torch.device] = None):
         missing = _unsupported(arch)
@@ -127,7 +143,9 @@ class LMModel:
             raise ValueError(f"remat {remat!r} not in {REMAT}")
         self.arch = arch
         self.remat = remat
-        self.padded = PaddedDims.for_tp(arch, 1)
+        self.tp = tp
+        self.padded = PaddedDims.for_tp(arch, tp)
+        self.moe_mesh = moe_mesh
         self.kernel_mode = kernel_mode
         self.cache_dtype = cache_dtype
         self.device = resolve_device(device)
@@ -177,7 +195,9 @@ class LMModel:
             return {"ln1": ln(), **mix, "ln2": ln(),
                     "moe": moe_mod.moe_schema(arch)}
         # an MoE stack's leading dense layers may have a width of their own
-        d_ff = arch.moe.dense_d_ff if arch.moe is not None else None
+        d_ff = (pad_to(arch.moe.dense_d_ff, self.tp)
+                if arch.moe is not None and arch.moe.dense_d_ff is not None
+                else None)
         return {"ln1": ln(), **mix, "ln2": ln(),
                 "mlp": _mlp_schema(arch, self.padded, d_ff)}
 
@@ -280,10 +300,34 @@ class LMModel:
         if kind == "rwkv":
             return x + rwkv_mod.channel_mix_forward(p["tm"], h), aux
         if kind == "moe":
-            y, aux = moe_mod.moe_forward(p["moe"], h, arch)
+            if self.moe_mesh is not None:
+                y, aux = self._moe_sharded(p["moe"], h)
+            else:
+                y, aux = moe_mod.moe_forward(p["moe"], h, arch)
             return x + y, aux
         return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                           p["mlp"]["w_down"], arch.act), aux
+
+    def _moe_sharded(self, p: Dict[str, Any], h: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``shard_map`` MoE on ``moe_mesh``: sequence
+        block i and experts block i on shard i, the shared experts added
+        outside."""
+        arch, mesh = self.arch, self.moe_mesh
+        n, S = mesh.n, h.shape[1]
+        if S % n:
+            raise ValueError(f"{S} positions do not split into {n} shards")
+        el, sl = arch.moe.n_experts // n, S // n
+        inputs = [({"router": p["router"],
+                    **{k: p[k][i * el:(i + 1) * el]
+                       for k in ("w_gate", "w_up", "w_down")}},
+                   h[:, i * sl:(i + 1) * sl]) for i in range(n)]
+        outs = mesh.run(lambda comm, a: moe_mod.moe_forward_sharded(
+            comm, a[0], a[1], arch), inputs)
+        y = torch.cat([o for o, _ in outs], dim=1)
+        if arch.moe.n_shared_experts:
+            y = y + moe_mod.shared_expert_forward(p, h, arch)
+        return y, outs[0][1]
 
     def _embed(self, params: Dict[str, Any],
                batch: Dict[str, Any]) -> torch.Tensor:

@@ -1,3 +1,4 @@
-"""Optimizers: AdamW and the learning-rate schedules."""
-from repro_torch.optim import adamw, schedules
+"""Optimizers: AdamW, the learning-rate schedules and gradient
+compression."""
+from repro_torch.optim import adamw, compression, schedules
 from repro_torch.optim.adamw import AdamWState

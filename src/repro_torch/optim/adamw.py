@@ -65,6 +65,20 @@ def init(params: Any, cfg: TrainConfig) -> AdamWState:
                       master)
 
 
+def abstract_state(params_abs: Any, cfg: TrainConfig) -> AdamWState:
+    """``init``'s state as ``meta`` tensors (shape and dtype, no storage),
+    from the parameters' (e.g. ``core.params.abstract_params``)."""
+    mdtype = _dtype(cfg.moment_dtype)
+
+    def like(dtype):
+        return lambda p: torch.empty(p.shape, dtype=dtype, device="meta")
+    master = (_map(like(torch.float32), params_abs)
+              if cfg.master_weights else None)
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"),
+                      _map(like(mdtype), params_abs),
+                      _map(like(mdtype), params_abs), master)
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     total = 0
     for x in leaves(tree):

@@ -1160,3 +1160,137 @@ def test_cuda_small_deepseek_matches_the_cpu(dev):
             np.testing.assert_allclose(logits[:, 0].cpu().numpy(),
                                        got[:, step].cpu().numpy(),
                                        atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_cuda_compression_is_its_cpu_bits(dev, n):
+    """Quantization and the compressed psum on a virtual mesh of CUDA
+    tensors give the CPU's bits: q, scales, synced gradients, residuals
+    (the division by n is by a device tensor, not a reciprocal)."""
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.optim import compression
+    rng = np.random.RandomState(n)
+    g = [{"a": torch.from_numpy((rng.randn(37, 29) * np.exp(
+        rng.randn(37, 29))).astype(np.float32)),
+          "b": torch.from_numpy(rng.randn(3, 700).astype(np.float32))}
+         for _ in range(n)]
+    e = [{k: torch.from_numpy((rng.randn(*v.shape) * 1e-2).astype(
+        np.float32)) for k, v in gi.items()} for gi in g]
+    q_c, s_c = compression.quantize_int8(g[0]["a"])
+    q_d, s_d = compression.quantize_int8(g[0]["a"].to(dev))
+    assert torch.equal(q_d.cpu(), q_c) and torch.equal(s_d.cpu(), s_c)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        # copies: the residuals are updated in place
+        inputs = [(_to(gi, d), {k: v.clone().to(d) for k, v in ei.items()})
+                  for gi, ei in zip(g, e)]
+        out[d.type] = VirtualMesh(n, d, timeout=60).run(
+            lambda comm, a: compression.compressed_psum(a[0], comm, a[1]),
+            inputs)
+    for (sc, ec), (sd, ed) in zip(out["cpu"], out["cuda"]):
+        for k in ("a", "b"):
+            assert torch.equal(sd[k].cpu(), sc[k]), k
+            assert torch.equal(ed[k].cpu(), ec[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_dp_steps_on_a_virtual_mesh_match_the_cpu(dev):
+    """(B) at a small size: reduced recurrentgemma-2b (head dim 64) on 4
+    virtual ranks of the card, 2 steps with and without compression,
+    against the same on the CPU: losses and grad norms within 1e-4,
+    parameters within 2 x the summed learning rates; without compression
+    the 4 ranks' step equals one rank's on the whole batch within 1e-5."""
+    import dataclasses
+    from repro_torch.configs.reduced import REDUCED
+    from repro_torch.core.config import (LM_SHAPES, RunConfig,
+                                         ShardingConfig, TrainConfig)
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import dp_step, train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = dataclasses.replace(REDUCED["recurrentgemma-2b"], head_dim=64)
+    for compress in (False, True):
+        cfg = RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                        sharding=ShardingConfig(gradient_compression=compress),
+                        train=TrainConfig(learning_rate=1e-3, warmup_steps=1))
+        out, lrs = {}, 0.0
+        for d in (torch.device("cpu"), dev):
+            model = LMModel(arch, device=d)
+            params = _to(LMModel(arch, device="cpu").init_params(0), d)
+            state = adamw.init(params, cfg.train)
+            mesh = VirtualMesh(4, d, timeout=60)
+            errors = dp_step.init_error_feedback(params, mesh)
+            step_fn = dp_step.make_dp_train_step(model, cfg, mesh,
+                                                 total_steps=2)
+            before = dict(common.LAUNCHES)
+            metrics = []
+            for step in range(2):
+                batch = {k: torch.from_numpy(v).to(d) for k, v in
+                         synth_batch(arch, 4, 64, step=step).items()}
+                params, state, errors, m = step_fn(params, state, errors,
+                                                   batch, step)
+                metrics.append({k: float(v) for k, v in m.items()})
+            launched = {k: common.LAUNCHES[k] - before[k] for k in before}
+            out[d.type] = metrics, params, launched
+        assert out["cuda"][2]["flash_attention"] > 0
+        assert out["cuda"][2]["rglru_scan"] > 0
+        for mc, mg in zip(out["cpu"][0], out["cuda"][0]):
+            for k in ("loss", "grad_norm", "lr"):
+                np.testing.assert_allclose(mg[k], mc[k], rtol=1e-4)
+            lrs += mc["lr"]
+
+        def leaves(tree):
+            for k in sorted(tree):
+                v = tree[k]
+                yield from (leaves(v) if isinstance(v, dict) else (v,))
+        for a, b in zip(leaves(out["cpu"][1]), leaves(out["cuda"][1])):
+            assert float((a - b.cpu()).abs().max()) <= 2 * lrs
+    # 4 ranks against one rank on the whole batch, on the card
+    cfg = RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                    train=TrainConfig(learning_rate=1e-3, warmup_steps=1))
+    model = LMModel(arch, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synth_batch(arch, 4, 64, step=0).items()}
+    got = []
+    for fn in (train_loop.make_train_step(model, cfg),
+               dp_step.make_dp_train_step(model, cfg,
+                                          VirtualMesh(4, dev, timeout=60))):
+        params = _to(LMModel(arch, device="cpu").init_params(0), dev)
+        state = adamw.init(params, cfg.train)
+        args = (params, state, batch, 1) if len(got) == 0 else \
+            (params, state, None, batch, 1)
+        got.append(float(fn(*args)[-1]["loss"]))
+    np.testing.assert_allclose(got[1], got[0], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_dist_mesh_of_one_rank_over_nccl(dev, tmp_path):
+    """The communicator over NCCL at world size 1: every collective on
+    CUDA tensors gives a one-rank virtual mesh's bits, and the tensors
+    stay on the card."""
+    import torch.distributed as dist
+    from repro_torch.core import dist as tdist
+    from repro_torch.core.vmesh import VirtualMesh
+    x = torch.randn(8, 5, device=dev).t()
+    ints = torch.randint(-9, 9, (8, 5), device=dev, dtype=torch.int32)
+    ops = ("psum", "pmax", "pmin", "psum_scatter", "all_gather",
+           "all_to_all")
+    want = VirtualMesh(1, dev).run(
+        lambda comm, _: {(op, i): getattr(comm, op)(t)
+                         for op in ops for i, t in enumerate((x, ints))},
+        [None])[0]
+    with tdist.process_group("nccl", rank=0, world_size=1,
+                             store=dist.FileStore(str(tmp_path / "s"), 1),
+                             timeout=120) as mesh:
+        for op in ops:
+            for i, t in enumerate((x, ints)):
+                got = getattr(mesh.comm, op)(t)
+                assert got.device.type == "cuda"
+                assert torch.equal(got, want[(op, i)]), (op, i)
+        assert mesh.comm.psum(x).stride() == x.stride()
+        assert set(mesh.comm.traffic) == {"all_gather_into_tensor",
+                                          "all_reduce", "all_to_all_single"}
+    assert not dist.is_initialized()
