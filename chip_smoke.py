@@ -142,7 +142,29 @@ points:
     the forward (at capacity factor 32) under the flip rule, one forward
     ``loss_fn`` at 1 x 1024 (5 launches: the layers and the MTP head's)
     with ce, aux, mtp and total against the plain pass, and 8 requests
-    through ``launch.serve.serve`` with the cut config.
+    through ``launch.serve.serve`` with the cut config;
+  * the dry run (``launch/dryrun.py``) against the card, at float32
+    parameters: recurrentgemma-2b's train step at full depth, 1 x 4096,
+    its and rwkv6-7b's 2 x 4096 prefills, phi3.5-moe's prefill at 12
+    layers and one recurrentgemma-2b decode step, each built and traced
+    by ``build_cell`` and ``trace`` on fake tensors (no byte allocated, no
+    launch) and then run on real arguments to the same specs: their
+    bytes equal to the plan's ``argument_bytes_per_device``, their
+    allocation within the allocator's slack, FLOPs equal to a FlopCounterMode around the
+    real step, outputs' shapes and dtypes equal, the predicted peak above
+    the arguments within 10% of the measured rise of
+    ``max_memory_allocated``; and the script's depth cuts by
+    ``run_cell``'s one-card ``fits``: phi3.5-moe's prefill fits at 12
+    layers and not at 32, deepseek-v3 at 4 layers and 1 x 1024 fits its
+    forward (a prefill) and not its train step;
+  * the host us a call of the three LM kernels, layer by layer (wrapper,
+    checks and launch, ``torch.library`` operator, its implementation),
+    and a recurrentgemma-2b decode wave's ms.
+
+``python3 chip_smoke.py --host-cost SRC`` runs only that last timing, on
+the port under SRC (a checkout's ``src``), and prints it as one
+``host_cost`` JSON line and the card's line: run on two checkouts in
+turns, it compares them on one card.
 
 The kernel launch counts are zeroed just before each path and read just
 after it; a kernel of a path that never launched fails the run. It also
@@ -152,7 +174,8 @@ peak memory per phase. Any failed phase exits non-zero. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
 
-The last lines of standard output are the MLA and MoE phases' numbers,
+The last lines of standard output are the dry run's and the host cost's
+numbers, the MLA and MoE phases' numbers,
 the training step's numbers, the DP phase's numbers, the calibration
 report, the kernels' JSON
 record, the card's name and power limit, and
@@ -4742,6 +4765,386 @@ def mla_phase(dev):
     return fa_rec, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry run's one-card predictions held against the card
+# ---------------------------------------------------------------------------
+# The dry run (``launch/dryrun.py``) builds a cell's step and arguments on
+# fake tensors (``build_cell``) and traces it (``trace``); the same step is
+# then run on real arguments drawn to the same specs. Its peak above the
+# arguments is held within 10% of the measured rise of
+# ``max_memory_allocated`` over the step, its FLOPs to a FlopCounterMode
+# around the real step exactly, and the sharding plan's argument bytes
+# (``argument_bytes_per_device``) to the real arguments' bytes exactly and
+# to their allocation within the caching allocator's slack: each block
+# rounded up to 512 bytes, and a block of more than 1 MiB handed out
+# whole when what it would leave over is no more than 1 MiB (c10's
+# kMinBlockSize and kSmallSize)
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_DECODE_B = 8                       # the serving waves' 8 lanes
+ALLOC_SMALL = 1 << 20
+
+
+def alloc_slack(tensors) -> int:
+    """The most the caching allocator can hand out beyond ``tensors``'
+    bytes (each storage once): 512-byte rounding, and up to 1 MiB more
+    for a storage of more than 1 MiB."""
+    seen, slack = set(), 0
+    for t in tensors:
+        st = t.untyped_storage()
+        if st.data_ptr() in seen:
+            continue
+        seen.add(st.data_ptr())
+        n = st.nbytes()
+        slack += -n % 512 + (ALLOC_SMALL if n > ALLOC_SMALL else 0)
+    return slack
+
+
+def dryrun_no_device_work(label, fn):
+    """``fn()`` with the gates of a trace: the card's allocated and peak
+    bytes unchanged and no kernel launched. Returns (fn's result, its wall
+    seconds)."""
+    import torch
+    from repro_torch.kernels import common
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    alloc1 = torch.cuda.memory_allocated()
+    peak1 = torch.cuda.max_memory_allocated()
+    launched = {n: c for n, c in common.LAUNCHES.items() if c}
+    if alloc1 != alloc0 or peak1 != alloc0 or launched:
+        raise AssertionError(f"dryrun {label}: allocated {alloc0} -> "
+                             f"{alloc1} bytes, peak {peak1}, launches "
+                             f"{launched}")
+    return out, seconds
+
+
+def dryrun_real_args(model, shape, mesh, cfg):
+    """The step's arguments on the card, to the specs ``build_cell``
+    traced, seeded: ``init_params`` at ``cfg.param_dtype``, AdamW's state
+    for a train step, a batch of random token ids (random floats for a
+    float leaf) to ``batch_specs``, a decode step's cache filled to one
+    short of its capacity."""
+    import torch
+    from repro_torch.core.config import StepKind
+    from repro_torch.launch.sharding_plan import batch_specs
+    from repro_torch.optim import adamw
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init_params(seed=SEED,
+                               dtype=getattr(torch, cfg.param_dtype))
+    batch = {}
+    for name, m in batch_specs(model.arch, shape, mesh,
+                               cfg.sharding.strategy)["specs"].items():
+        batch[name] = (torch.randn(m.shape, device=dev, generator=gen).to(
+            m.dtype) if m.dtype.is_floating_point else torch.randint(
+            1, model.arch.vocab_size, m.shape, device=dev, dtype=m.dtype,
+            generator=gen))
+    if shape.kind == StepKind.TRAIN:
+        return params, adamw.init(params, cfg.train), batch, 0
+    if shape.kind == StepKind.PREFILL:
+        return params, batch
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             fill_len=shape.seq_len - 1)
+    return params, cache, batch
+
+
+def dryrun_hold(label, cfg):
+    """The cell of ``cfg`` on the one-card mesh: ``build_cell`` and
+    ``trace`` on fake tensors under the gates of a trace, then the same
+    model's step on real arguments drawn to the same specs (after
+    ``reset_peak_memory_stats``) under the same counters. Gates: the
+    arguments' shapes and dtypes equal the traced ones, their bytes the
+    plan's ``argument_bytes_per_device`` and their allocation within the
+    allocator's slack (``alloc_slack``); FLOPs equal; outputs' shapes and dtypes equal;
+    the predicted step peak within DRYRUN_PEAK_TOL of the measured rise.
+    Then the step's warm ms by CUDA events, beside the roofline's memory
+    and compute ms (data-sheet bytes/s, float32 FLOP/s: the products run
+    in fp32). Returns the cell's record."""
+    import gc
+    import torch
+    from repro_torch.launch import dryrun
+    mesh = dryrun.one_card_mesh()
+
+    def traced():
+        with dryrun.fake_card() as fdev:
+            model, fn, fargs = dryrun.build_cell(cfg.arch, cfg.shape, mesh,
+                                                 cfg)
+            return model, fn, dryrun.describe(fargs), dryrun.trace(
+                fn, fargs, fdev)
+    (model, step, spec, pred), seconds = dryrun_no_device_work(label, traced)
+    plan = dryrun.argument_bytes_per_device(model, cfg, mesh)
+    torch.cuda.synchronize()
+    before_args = torch.cuda.memory_allocated()
+    args = dryrun_real_args(model, cfg.shape, mesh, cfg)
+    torch.cuda.synchronize()
+    args_alloc = torch.cuda.memory_allocated() - before_args
+    tensors = dryrun._tensors(args)
+    args_bytes = sum(t.untyped_storage().nbytes() for t in tensors)
+    slack = alloc_slack(tensors)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    real = dryrun.trace(step, args, model.device)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    ms = cuda_ms(lambda: step(*args), reps=1, warmup=0)
+    real_spec = dryrun.describe(args)
+    outputs = real.pop("outputs")
+    del args, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = (pred["step_peak_bytes"] - rise) / rise
+    rec = dict(
+        cell=label, trace_s=seconds, trace_device=str(dryrun.card_stand_in()),
+        param_dtype=cfg.param_dtype, flops=pred["flops"],
+        real_flops=real["flops"], bytes=pred["bytes"],
+        plan_argument_bytes=plan["total"], real_argument_bytes=args_bytes,
+        real_argument_allocated=args_alloc, allocator_slack_bound=slack,
+        argument_tensors=len(tensors),
+        predicted_step_peak_bytes=pred["step_peak_bytes"],
+        measured_step_peak_bytes=rise,
+        tracked_real_step_peak_bytes=real["step_peak_bytes"],
+        real_bytes=real["bytes"], peak_rel_err=off,
+        predicted_total_gib=(plan["total"] + pred["step_peak_bytes"])
+        / 2**30,
+        measured_total_gib=(args_alloc + rise) / 2**30,
+        roofline_memory_ms=pred["bytes"] / HBM_BYTES_PER_S * 1e3,
+        roofline_compute_ms=pred["flops"] / F32_OPS_PER_S * 1e3,
+        measured_ms=ms)
+    log(f"dryrun {label}: {json.dumps(rec)}")
+    if real_spec != spec:
+        raise AssertionError(f"dryrun {label}: real arguments {real_spec}, "
+                             f"traced {spec}")
+    # the train step's counter is a Python int, an int32 in the plan
+    if args_bytes + plan.get("step", 0) != plan["total"] or not (
+            0 <= args_alloc - args_bytes <= slack):
+        raise AssertionError(f"dryrun {label}: the plan's argument bytes "
+                             f"{plan['total']}, the arguments' {args_bytes}"
+                             f", allocated {args_alloc} (slack at most "
+                             f"{slack})")
+    if real["flops"] != pred["flops"]:
+        raise AssertionError(f"dryrun {label}: traced FLOPs {pred['flops']}"
+                             f", the real step's {real['flops']}")
+    if outputs != pred["outputs"]:
+        raise AssertionError(f"dryrun {label}: outputs {outputs} traced as "
+                             f"{pred['outputs']}")
+    if abs(off) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"dryrun {label}: predicted step peak "
+                             f"{pred['step_peak_bytes']} bytes, measured "
+                             f"{rise}: {off:+.4f}, beyond {DRYRUN_PEAK_TOL}")
+    return rec
+
+
+def dryrun_cut(label, arch, shape, want_fit, **kw):
+    """A depth cut of the script's against the dry run's one-card verdict:
+    ``run_cell(..., one_card=True)["fits"]`` (the plan's argument bytes
+    plus the traced step peak, under the card's memory) must be
+    ``want_fit``."""
+    import torch
+    from repro_torch.launch import dryrun
+    rates = dict(dryrun.H100_SXM, device_memory=float(
+        torch.cuda.get_device_properties(0).total_memory))
+    rep, seconds = dryrun_no_device_work(label, lambda: dryrun.run_cell(
+        arch, shape, multi_pod=False, one_card=True, param_dtype="float32",
+        rates_source=dryrun.H100_SXM_SOURCE + "; device memory: the "
+        "card's total_memory", verbose=False, **rates, **kw))
+    rec = dict(cut=label, trace_s=seconds, fits=rep["fits"],
+               argument_gib=rep["argument_bytes_per_device"]["total"] / 2**30,
+               step_peak_gib=rep["temp_bytes_per_device"] / 2**30,
+               total_gib=rep["bytes_per_device"] / 2**30,
+               limit_gib=rep["device_memory"] / 2**30)
+    log(f"dryrun cut {label}: {json.dumps(rec)}")
+    if rep["fits"] is not want_fit:
+        raise AssertionError(f"dryrun cut {label}: fits {rep['fits']}, the "
+                             f"script's cut says {want_fit}")
+    return rec
+
+
+def dryrun_phase(dev):
+    """The dry run's predictions against the card, at float32 parameters
+    as the script runs them: (a) recurrentgemma-2b's train step at full
+    depth, 1 x 4096; (b) recurrentgemma-2b's and rwkv6-7b's 2 x 4096
+    prefills; (c) phi3.5-moe's prefill at the MoE phase's 12 of 32 layers;
+    (d) one recurrentgemma-2b decode step; then the script's depth cuts
+    by ``run_cell``'s verdict: phi3.5-moe's 2 x 4096 prefill fits at 12
+    layers and not at 32; deepseek-v3 at 4 layers and 1 x 1024, its
+    forward (a prefill) fits and its train step does not. Returns the
+    phase's numbers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import (RunConfig, ShapeConfig, StepKind,
+                                         TrainConfig)
+    from repro_torch.launch import dryrun
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    # FakeTensorMode's one-time set-up on the card (a 1-element tensor,
+    # freed), made by the first fake_card of the process: before the gates
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    with dryrun.fake_card():
+        pass
+    warm = torch.cuda.max_memory_allocated() - alloc0
+    log(f"dryrun: the first fake_card's set-up: {warm} bytes at peak, "
+        f"{torch.cuda.memory_allocated() - alloc0} kept")
+
+    def cfg(arch, kind, B, S, **train):
+        shape = ShapeConfig(f"{kind}_{B}x{S}", StepKind(kind), S, B)
+        return RunConfig(arch=arch, shape=shape, param_dtype="float32",
+                         train=TrainConfig(**train))
+    rg, phi = get_arch(LM_ARCH), get_arch(MOE_ARCH)
+    phi_cut = dataclasses.replace(phi, n_layers=MOE_LAYERS)
+    cells = [
+        dryrun_hold("(a) recurrentgemma-2b train step, 1 x 4096",
+                    cfg(rg, "train", TRAIN_B, TRAIN_S,
+                        warmup_steps=TRAIN_WARMUP)),
+        dryrun_hold("(b) recurrentgemma-2b prefill, 2 x 4096",
+                    cfg(rg, "prefill", LM_B, LM_S)),
+        dryrun_hold("(b) rwkv6-7b prefill, 2 x 4096",
+                    cfg(get_arch(RWKV_ARCH), "prefill", LM_B, LM_S)),
+        dryrun_hold(f"(c) phi3.5-moe prefill, {MOE_LAYERS} of 32 layers, "
+                    f"2 x 4096", cfg(phi_cut, "prefill", LM_B, LM_S)),
+        dryrun_hold(f"(d) recurrentgemma-2b decode step, B "
+                    f"{DRYRUN_DECODE_B}, cache {LM_S}",
+                    cfg(rg, "decode", DRYRUN_DECODE_B, LM_S)),
+    ]
+    ds = dataclasses.replace(get_arch(MLA_ARCH), n_layers=MLA_LAYERS)
+    prefill = ShapeConfig(f"prefill_{LM_B}x{LM_S}", StepKind.PREFILL, LM_S,
+                          LM_B)
+    cuts = [
+        dryrun_cut(f"phi3.5-moe prefill at {MOE_LAYERS} layers", phi_cut,
+                   prefill, True),
+        dryrun_cut("phi3.5-moe prefill at 32 layers", phi, prefill, False),
+        dryrun_cut(f"deepseek-v3 forward (prefill) at {MLA_LAYERS} layers, "
+                   f"1 x {MLA_LOSS_S}", ds, ShapeConfig(
+                       "prefill_1x1024", StepKind.PREFILL, MLA_LOSS_S, 1),
+                   True),
+        dryrun_cut(f"deepseek-v3 train step at {MLA_LAYERS} layers, 1 x "
+                   f"{MLA_LOSS_S}", ds, ShapeConfig(
+                       "train_1x1024", StepKind.TRAIN, MLA_LOSS_S, 1),
+                   False, accum=1),
+    ]
+    seconds = time.perf_counter() - t0
+    log(f"dryrun phase: {seconds:.3f} s")
+    return dict(cells=cells, cuts=cuts, first_fake_card_bytes=warm,
+                seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# the host's cost of a call of the three LM kernels, layer by layer
+# ---------------------------------------------------------------------------
+HOST_COST_ROUNDS, WAVE_ROUNDS = 5, 3
+WAVE_B, WAVE_CAP = 8, 256
+
+
+def host_cost(dev):
+    """Host us a call of the three LM kernels at small inputs, where the
+    host's issue bounds a call (``host_us``; the median of
+    HOST_COST_ROUNDS rounds, the layers timed in turns within a round),
+    layer by layer: the wrapper (``flash_attention``, ``linear_scan``,
+    ``wkv6``, under no_grad); its ``_launch`` (the checks and the launch);
+    where the launch is a ``torch.library`` operator, the operator
+    (``torch.ops.repro_torch.*``) and its CUDA implementation called as a
+    plain function. Then the ms of a recurrentgemma-2b decode wave (B 8,
+    cache 256, fp32 weights from SEED; ``cuda_ms`` of 10 waves, the median
+    of WAVE_ROUNDS rounds). The port timed is the one on ``sys.path``, so
+    that ``--host-cost SRC`` times another checkout's in the same way."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import linear_scan
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wk_ops
+    from repro_torch.kernels.rwkv6_scan import wkv6
+    from repro_torch.models.lm import LMModel
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    q, k, v = rand(1, 16, 8, 64), rand(1, 16, 2, 64), rand(1, 16, 2, 64)
+    a = torch.rand(1, 16, 256, device=dev, generator=gen)
+    b = rand(1, 16, 256)
+    wkv_args = (rand(1, 16, 2, 64), rand(1, 16, 2, 64), rand(1, 16, 2, 64),
+                torch.rand(1, 16, 2, 64, device=dev, generator=gen),
+                rand(2, 64))
+    layers = {
+        "flash_attention": {
+            "wrapper": lambda: flash_attention(q, k, v),
+            "launch": lambda: fa_ops._launch(q, k, v, causal=True,
+                                             window=None, q_offset=0,
+                                             scale=0.125)},
+        "rglru_scan": {"wrapper": lambda: linear_scan(a, b),
+                       "launch": lambda: sc_ops._launch(a, b)},
+        "wkv6": {"wrapper": lambda: wkv6(*wkv_args),
+                 "launch": lambda: wk_ops._launch(*wkv_args)}}
+    if hasattr(torch.ops.repro_torch, "flash_attention_fwd"):
+        nc = -(-a.shape[1] // (sc_ops.WARPS * sc_ops.CHUNK))
+        words = torch.empty(a.shape[0] * nc * a.shape[2] + 1,
+                            dtype=torch.int64, device=dev)
+        ops = torch.ops.repro_torch
+        layers["flash_attention"].update(
+            operator=lambda: ops.flash_attention_fwd(q, k, v, True, -1, 0,
+                                                     0.125),
+            function=lambda: fa_ops._cuda_fwd(q, k, v, True, -1, 0, 0.125))
+        layers["rglru_scan"].update(
+            operator=lambda: ops.rglru_scan_fwd(a, b, words, sc_ops.CHUNK),
+            function=lambda: sc_ops._cuda_fwd(a, b, words, sc_ops.CHUNK))
+        layers["wkv6"].update(
+            operator=lambda: ops.wkv6_fwd(*wkv_args),
+            function=lambda: wk_ops._cuda_fwd(*wkv_args))
+    out = {}
+    with torch.no_grad():
+        for name, fns in layers.items():
+            runs = {layer: [] for layer in fns}
+            for _ in range(HOST_COST_ROUNDS):
+                for layer, fn in fns.items():
+                    runs[layer].append(host_us(fn))
+            out[name] = {layer: statistics.median(t)
+                         for layer, t in runs.items()}
+        arch = get_arch(LM_ARCH)
+        model = LMModel(arch, device=dev)
+        params = model.init_params(seed=SEED)
+        cache = model.init_cache(WAVE_B, WAVE_CAP, fill_len=WAVE_CAP // 2)
+        tokens = torch.randint(1, arch.vocab_size, (WAVE_B, 1), device=dev,
+                               dtype=torch.int32, generator=gen)
+        wave = statistics.median(cuda_ms(
+            lambda: model.decode_step(params, cache, {"tokens": tokens}),
+            reps=10) for _ in range(WAVE_ROUNDS))
+    del model, params, cache
+    return dict(host_us=out, decode_wave_ms=wave,
+                decode_wave=f"{LM_ARCH}, B {WAVE_B}, cache {WAVE_CAP}")
+
+
+def host_cost_main(src: str) -> int:
+    """``--host-cost SRC``: build the three LM kernels of the port under
+    SRC (a checkout's ``src``) and print ``host_cost`` of it as one JSON
+    line, then the card's name and power limit. Run it on two checkouts in
+    turns (parent, change, change, parent) to compare them on one card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels import build
+    build.build(["flash_attention", "rglru_scan", "rwkv6_scan"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    numbers = host_cost(torch.device("cuda"))
+    print("host_cost " + json.dumps(dict(numbers, src=src,
+                                         torch=torch.__version__)))
+    print(card_line())
+    return 0
+
+
 def peak_line(label: str) -> float:
     """Print the phase's peak device memory in GiB, reset the counter and
     return the peak."""
@@ -4885,6 +5288,10 @@ def main() -> int:
     log(f"moe and families phases: {time.perf_counter() - t_new:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     mla_fa, mla_numbers = mla_phase(dev)
+    torch.cuda.reset_peak_memory_stats()
+    dryrun_numbers = dryrun_phase(dev)
+    host_numbers = host_cost(dev)
+    log(f"host cost: {json.dumps(host_numbers)}")
     lm_kernels[0].update(
         launches_moe_prefill=moe_fa.pop("launches"),
         launches_moe_train=moe_fa.pop("launches_train"),
@@ -4929,6 +5336,8 @@ def main() -> int:
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
+    print("dryrun " + json.dumps(dryrun_numbers))
+    print("host_cost " + json.dumps(host_numbers))
     print("mla " + json.dumps(mla_numbers))
     print("moe " + json.dumps(moe_numbers))
     print("train " + json.dumps(train_numbers))
@@ -4944,6 +5353,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--host-cost"]:
+            sys.exit(host_cost_main(sys.argv[2] if len(sys.argv) > 2
+                                    else os.path.join(ROOT, "src")))
         sys.exit(main())
     except Exception as exc:            # any failed phase: no result line
         import traceback

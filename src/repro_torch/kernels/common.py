@@ -11,6 +11,12 @@ a CUDA kernel runs on the card or not at all. The modes are
 Set globally via env REPRO_TORCH_KERNEL_MODE or per call with ``mode``.
 The choice follows the tensor's device, never the machine: a CUDA tensor
 under "auto" launches the kernel or raises, it never falls back.
+
+Each LM kernel's launch is an operator of the ``repro_torch`` library
+(``torch.library``): a CUDA implementation that builds, launches and
+counts, a fake one that gives the outputs' shapes and dtypes, and a FLOP
+formula (``torch.utils.flop_counter``), so that a trace on fake tensors
+(``launch.dryrun``) sees each launch with no build and no launch.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import threading
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 ENV_VAR = "REPRO_TORCH_KERNEL_MODE"
 _VALID = ("auto", "cuda", "ref")
@@ -64,8 +71,10 @@ def check_input(t: torch.Tensor, name: str, dtype: torch.dtype,
                 contiguous: bool = True) -> None:
     """Raise unless ``t`` is what a CUDA kernel takes: a tensor of
     ``dtype`` and ``shape`` on the CUDA device ``device``, contiguous (or,
-    with ``contiguous=False``, contiguous in its last dim)."""
-    if t.device != device or device.type != "cuda":
+    with ``contiguous=False``, contiguous in its last dim). A fake tensor
+    (the dry run's, on any device) stands for the card's."""
+    if t.device != device or not (device.type == "cuda"
+                                  or isinstance(t, FakeTensor)):
         raise ValueError(f"{name} must lie on {device}, a CUDA device; "
                          f"got {t.device}")
     if t.dtype != dtype:

@@ -9,6 +9,13 @@ with the plain ``ref.attention_chunked_with_lse``, then the blockwise
 backward kernel either; its products go to the compiler, here to
 ``torch.matmul``. One-token decode has no kernel, in the reference or
 here: it is the plain ``ref.decode_attention_ref`` on every device.
+
+The launch is the operator ``torch.ops.repro_torch.flash_attention_fwd``
+(``kernels.common``): a trace on fake tensors reaches its fake
+implementation and its FLOP formula, ``flops``, and neither builds nor
+launches. The kernel computes in float32: on its route ``_Attention``
+hands it float32 copies of inputs of other dtypes (bfloat16 parameters),
+and recomputes the backward from the same copies.
 """
 from __future__ import annotations
 
@@ -16,7 +23,9 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_input, count_launch,
@@ -35,6 +44,76 @@ def _bind():
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     return fn
+
+
+def visible_pairs(Sq: int, Skv: int, q_offset: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """(query, key) pairs the causal and window masks leave visible, per
+    (batch, query head): query i sits at q_offset + i, sees keys at or
+    before it when causal and after it - window when windowed. Counted
+    in numpy, so that a trace on fake tensors can call it."""
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(Sq, np.int64))
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flops(q_shape, k_shape, causal: bool, window: Optional[int],
+          q_offset: int) -> int:
+    """The kernel's operations: 4 D a visible (query, key) pair of every
+    batch row and query head (2 D for the score, 2 D for the mix), as the
+    bound of PERF.md's kernel table counts them."""
+    B, Sq, Hq, D = q_shape
+    return 4 * D * B * Hq * visible_pairs(Sq, k_shape[1], q_offset, causal,
+                                          window)
+
+
+# The launch as an operator of the ``repro_torch`` library: its CUDA
+# implementation launches and counts; its fake implementation (a trace on
+# fake tensors) gives the output's shape and dtype with no build and no
+# launch; ``flops`` is its formula for ``FlopCounterMode``. A window of -1
+# is none.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, int q_offset, float scale) -> Tensor")
+
+
+def _cuda_fwd(q, k, v, causal, window, q_offset, scale):
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    # the kernel reads q with float4 loads and copies k, v rows with bulk
+    # copies, which need 16-byte aligned bases: a view off alignment is
+    # copied to a fresh allocation
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    fn = _bind()
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                Sq, Skv, Hq, Hkv, D, q_offset, int(causal), window, scale,
+                stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    count_launch("flash_attention")
+    return out
+
+
+_LIB.impl("flash_attention_fwd", _cuda_fwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd", lib=_LIB)
+def _fake_fwd(q, k, v, causal, window, q_offset, scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, window, q_offset, scale,
+               out_shape=None, **kwargs) -> int:
+    return flops(q_shape, k_shape, causal, None if window < 0 else window,
+                 q_offset)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -59,49 +138,39 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    # the kernel reads q with float4 loads and copies k, v rows with bulk
-    # copies, which need 16-byte aligned bases: a view off alignment is
-    # copied to a fresh allocation
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    fn = _bind()
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                Sq, Skv, Hq, Hkv, D, q_offset, int(causal),
-                -1 if window is None else window, scale, stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    count_launch("flash_attention")
-    return out
-
-
-def _dispatch(q, k, v, causal, window, q_offset, scale, mode):
-    if kernel_mode(mode, q.device) == "cuda":
-        return _launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                       causal=causal, window=window, q_offset=q_offset,
-                       scale=scale)
-    return attention_chunked(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset, scale=scale)
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, bool(causal), -1 if window is None else int(window),
+        int(q_offset), float(scale))
 
 
 class _Attention(torch.autograd.Function):
     """The dispatched forward; the reference's recompute-based backward
-    (no residual but q, k, v: the memory stays flat in seq_len)."""
+    (no residual but q, k, v: the memory stays flat in seq_len). On the
+    kernel's route q, k, v are float32, the kernel's one dtype (copies of
+    other dtypes), in the forward and in the backward's recompute alike;
+    the output and the gradients come back in the inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale, mode):
-        ctx.save_for_backward(q, k, v)
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
         ctx.cfg = dict(causal=causal, window=window, q_offset=q_offset,
                        scale=scale)
-        return _dispatch(q, k, v, causal, window, q_offset, scale, mode)
+        if kernel_mode(mode, q.device) == "cuda":
+            q, k, v = q.float(), k.float(), v.float()   # float32: as given
+            out = _launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                          **ctx.cfg)
+        else:
+            out = attention_chunked(q, k, v, **ctx.cfg)
+        ctx.save_for_backward(q, k, v)
+        return out.to(ctx.dtypes[0])
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         out, lse = attention_chunked_with_lse(q, k, v, **ctx.cfg)
-        dq, dk, dv = attention_chunked_bwd(q, k, v, out, lse, g, **ctx.cfg)
+        grads = attention_chunked_bwd(q, k, v, out, lse, g.to(q.dtype),
+                                      **ctx.cfg)
+        dq, dk, dv = (d.to(t) for d, t in zip(grads, ctx.dtypes))
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -8,6 +8,11 @@ scan, run reversed, as in the reference:
   db_t = g_t + a_{t+1} db_{t+1}         (a suffix scan of the gradients)
   da_t = db_t * h_{t-1}
 so it goes through the same dispatch: the CUDA kernel on the card.
+
+The launch is the operator ``torch.ops.repro_torch.rglru_scan_fwd``
+(``kernels.common``): a trace on fake tensors reaches its fake
+implementation and its FLOP formula, ``flops``, and neither builds nor
+launches.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_input, count_launch,
@@ -37,6 +43,51 @@ def _bind():
     return fn
 
 
+def flops(shape) -> int:
+    """The recurrence's operations: a multiply and an add an element of
+    (B, S, D), as the bound of PERF.md's kernel table counts them."""
+    B, S, D = shape
+    return 2 * B * S * D
+
+
+# The launch as an operator of the ``repro_torch`` library: its CUDA
+# implementation launches and counts; its fake implementation (a trace on
+# fake tensors) gives h's shape and dtype with no build and no launch;
+# ``flops`` is its formula for ``FlopCounterMode``. ``words`` is the
+# chain's scratch, allocated by the wrapper so that a trace sees it.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("rglru_scan_fwd(Tensor a, Tensor b, Tensor(a!) words, "
+            "int chunk) -> Tensor")
+
+
+def _cuda_fwd(a, b, words, chunk):
+    B, S, D = a.shape
+    dev = a.device
+    out = torch.empty_like(a)
+    fn = _bind()
+    with torch.cuda.device(dev):
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), None,
+                words.data_ptr(), B, S, D, chunk, stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan launch failed: CUDA error {rc}")
+    count_launch("rglru_scan")
+    return out
+
+
+_LIB.impl("rglru_scan_fwd", _cuda_fwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::rglru_scan_fwd", lib=_LIB)
+def _fake_fwd(a, b, words, chunk):
+    return torch.empty_like(a)
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan_fwd)
+def _fwd_flops(a_shape, b_shape, words_shape, chunk, out_shape=None,
+               **kwargs) -> int:
+    return flops(a_shape)
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, *,
             chunk: int = CHUNK) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous float32 a, b (B, S, D) on one
@@ -50,21 +101,13 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *,
     check_input(b, "b", torch.float32, (B, S, D), dev)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
-    out = torch.empty_like(a)
-    if out.numel() == 0:
-        return out
+    if a.numel() == 0:
+        return torch.empty_like(a)
     # the chain's words (B, chunks, D), then the ticket; the launcher zeroes
     # them on the stream before the kernel
     nc = -(-S // (WARPS * chunk))
     words = torch.empty(B * nc * D + 1, dtype=torch.int64, device=dev)
-    fn = _bind()
-    with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), None,
-                words.data_ptr(), B, S, D, chunk, stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"rglru_scan launch failed: CUDA error {rc}")
-    count_launch("rglru_scan")
-    return out
+    return torch.ops.repro_torch.rglru_scan_fwd(a, b, words, int(chunk))
 
 
 def _dispatch(a: torch.Tensor, b: torch.Tensor,

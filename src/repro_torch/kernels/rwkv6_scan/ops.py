@@ -8,6 +8,11 @@ and its vjp taken, for y and the final state, on every device. The
 kernel gives ``wkv6_ref``'s bits, so the gradients are those of autograd
 through ``wkv6_ref``. One decode step has no kernel, in the reference or
 here: ``wkv6_step`` is the plain op on every device.
+
+The launch is the operator ``torch.ops.repro_torch.wkv6_fwd``
+(``kernels.common``): a trace on fake tensors reaches its fake
+implementation and its FLOP formula, ``flops``, and neither builds nor
+launches.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_input, count_launch,
@@ -32,6 +38,57 @@ def _bind():
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     return fn
+
+
+def flops(shape) -> int:
+    """The recurrence's operations on r, k, v, w of ``shape`` (B, S, H,
+    N): 5 N^2 + 5 N a (batch row, step, head), as the bound of PERF.md's
+    kernel table counts them."""
+    B, S, H, N = shape
+    return B * S * H * (5 * N * N + 5 * N)
+
+
+# The launch as an operator of the ``repro_torch`` library: its CUDA
+# implementation launches and counts; its fake implementation (a trace on
+# fake tensors) gives y's and the state's shapes and dtypes with no build
+# and no launch; ``flops`` is its formula for ``FlopCounterMode``.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("wkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u) "
+            "-> (Tensor, Tensor)")
+
+
+def _cuda_fwd(r, k, v, w, u):
+    B, S, H, N = r.shape
+    dev = r.device
+    y = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
+    s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    if B * H == 0:
+        return y, s_out
+    sb, ss, sh, _ = r.stride()
+    fn = _bind()
+    with torch.cuda.device(dev):
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), y.data_ptr(), s_out.data_ptr(), B, S, H, N,
+                sb, ss, sh, stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
+    count_launch("wkv6")
+    return y, s_out
+
+
+_LIB.impl("wkv6_fwd", _cuda_fwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::wkv6_fwd", lib=_LIB)
+def _fake_fwd(r, k, v, w, u):
+    B, S, H, N = r.shape
+    return (r.new_empty((B, S, H, N), dtype=torch.float32),
+            r.new_empty((B, H, N, N), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_fwd)
+def _fwd_flops(r_shape, *args, out_shape=None, **kwargs) -> int:
+    return flops(r_shape)
 
 
 def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,20 +111,7 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_input(u, "u", torch.float32, (H, N), dev)
     if N not in HEAD_SIZES:
         raise ValueError(f"head size {N} not in the kernel's {HEAD_SIZES}")
-    y = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
-    s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
-    if B * H == 0:
-        return y, s_out
-    sb, ss, sh, _ = r.stride()
-    fn = _bind()
-    with torch.cuda.device(dev):
-        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                u.data_ptr(), y.data_ptr(), s_out.data_ptr(), B, S, H, N,
-                sb, ss, sh, stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
-    count_launch("wkv6")
-    return y, s_out
+    return tuple(torch.ops.repro_torch.wkv6_fwd(r, k, v, w, u))
 
 
 def _strided(xs):

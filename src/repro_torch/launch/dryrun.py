@@ -1,0 +1,650 @@
+"""Dry run: trace every (arch x shape x mesh) cell on fake tensors.
+
+The counterpart of ``repro.launch.dryrun``. For each cell this driver
+  1. chooses the cell's run configuration (``cell_config``) or skips it
+     (``skip_reason``), as the reference does;
+  2. builds the step (``make_train_step``, ``LMModel.prefill`` or
+     ``decode_step``) and its inputs as fake tensors
+     (``torch._subclasses.FakeTensorMode``) on the card's stand-in
+     (``fake_card``): zero device allocation at any model size;
+  3. runs it once (``trace``): FLOPs from ``FlopCounterMode`` (the three
+     LM kernels are ``torch.library`` operators with FLOP formulas), the
+     bytes every operator reads and writes, the peak of live bytes and the
+     outputs' shapes and dtypes, with no kernel built or launched;
+  4. takes each argument's bytes on one device from the sharding plan of
+     the production meshes (``launch.sharding_plan``);
+  5. derives the roofline terms from the rates it is given and emits a
+     JSON report.
+
+The reference lowers the plain path (``kernel_mode="ref"``); the dry run
+traces the kernels' path, the one that runs on the card: the plain scans
+are per-token Python loops that cannot be traced in useful time, and the
+plain attention materializes scores that the kernel never allocates.
+The stand-in (``card_stand_in``) is a fake ``cuda:0`` where the host has
+a card and a fake CPU device where it has none (a build of PyTorch
+without CUDA aborts the process when autograd meets a CUDA tensor, fake or
+not); ``build_cell`` gives the model that device and the kernels' route
+(``kernel_mode="cuda"``), and the kernels' checks take a fake tensor for
+the card's.
+
+On the pod meshes (16 x 16, 2 x 16 x 16) the trace is of the whole step on
+one device: FLOPs and bytes are the step's, spread evenly over the chips
+in the roofline; the per-device temporaries and the collective bytes need
+the sharded step (ROADMAP item 16) and stay null. On the one-card mesh
+the trace's peak is the device's.
+
+Usage (no card needed):
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch recurrentgemma-2b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod both --out-dir "$TMPDIR/dryrun"
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import os
+import sys
+import time
+import traceback
+import weakref
+from typing import (Any, Callable, Dict, Iterator, Optional, Tuple,
+                    Union)
+
+import numpy as np
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode, init_gpu_context
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.core.config import (LM_SHAPES, ArchConfig, PlacementPolicy,
+                                     RunConfig, ShapeConfig, ShardingConfig,
+                                     StepKind, TrainConfig)
+from repro_torch.core.params import abstract_params
+from repro_torch.core.partitioning import MeshSpec, axis_size
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.sharding_plan import (batch_specs, cache_shardings,
+                                              opt_state_shardings,
+                                              param_shardings)
+from repro_torch.models.lm import LMModel
+from repro_torch.optim import adamw
+from repro_torch.runtime.train_loop import make_train_step
+
+# NVIDIA H100 SXM data sheet (dense rates, the full 700 W power limit):
+# what the CLI passes; ``run_cell`` takes every rate as a keyword.
+H100_SXM = dict(peak_flops=989e12,      # bf16 tensor cores, dense
+                hbm_bw=3.35e12,         # device memory, bytes/s
+                link_bw=4.5e11,         # NVLink, bytes/s each way
+                device_memory=80e9)     # 80 GB
+H100_SXM_SOURCE = ("NVIDIA H100 SXM data sheet: 989 TFLOP/s bf16 dense, "
+                   "3.35 TB/s, NVLink 450 GB/s each way, 80 GB")
+SHARDED_STEP = "needs the sharded step (ROADMAP item 16)"
+# caching allocator's rounding of every block (c10's kMinBlockSize)
+ALLOC_ROUND = 512
+
+
+# ---------------------------------------------------------------------------
+# per-cell configuration (the reference's defaults; overrides via the CLI)
+# ---------------------------------------------------------------------------
+def cell_config(arch: ArchConfig, shape: ShapeConfig, *,
+                policy: str = "interleave", sequence_parallel: bool = True,
+                accum: Optional[int] = None,
+                strategy: str = "tp",
+                accum_bf16: Optional[bool] = None) -> RunConfig:
+    is_deepseek = arch.name == "deepseek-v3"
+    is_moe = arch.moe is not None
+    big_dense = arch.param_count() > 20e9
+    default_accum = 8 if is_deepseek else (4 if is_moe else
+                                           (2 if big_dense else 1))
+    train = TrainConfig(
+        accum_steps=accum if accum is not None else default_accum,
+        grad_accum_dtype="bfloat16" if (accum_bf16 if accum_bf16 is not None
+                                        else is_deepseek) else "float32",
+        moment_dtype="bfloat16" if is_deepseek else "float32",
+        master_weights=not is_deepseek,
+        remat="block",
+    )
+    sharding = ShardingConfig(
+        policy=PlacementPolicy(policy),
+        strategy=strategy,
+        sequence_parallel=sequence_parallel and strategy == "tp",
+        expert_parallel_data=is_deepseek,
+    )
+    return RunConfig(arch=arch, shape=shape, sharding=sharding, train=train)
+
+
+def skip_reason(arch: ArchConfig, shape: ShapeConfig) -> Optional[str]:
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return ("skipped: pure full-attention arch — 512k-token dense KV at "
+                "batch 1 is not a sub-quadratic-serving shape")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# meshes and the arguments' bytes on one device
+# ---------------------------------------------------------------------------
+def one_card_mesh() -> MeshSpec:
+    """The one-card mesh: both axes of size 1."""
+    return MeshSpec(("data", "model"), (1, 1), np.zeros((1, 1), np.int64))
+
+
+def n_chips(mesh: MeshSpec) -> int:
+    return int(np.prod(mesh.axis_sizes))
+
+
+def mesh_name(mesh: MeshSpec) -> str:
+    """"16x16", "2x16x16", or "1" for one card."""
+    if n_chips(mesh) == 1:
+        return "1"
+    return "x".join(str(s) for s in mesh.axis_sizes)
+
+
+def shard_shape(shape, spec, mesh: MeshSpec) -> Tuple[int, ...]:
+    """One device's block of a ``shape`` array laid out by ``spec``: each
+    dim divided by the size of the mesh axes named for it (the plan's
+    specs only name axes that divide their dim)."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, axis in zip(shape, parts):
+        size = axis_size(mesh, axis)
+        if dim % size:
+            raise ValueError(f"dim {dim} does not split over {axis} "
+                             f"({size})")
+        out.append(dim // size)
+    return tuple(out)
+
+
+def _pairs(values: Any, shardings: Any) -> Iterator[Tuple[Any, Any]]:
+    """(leaf, its NamedSharding) over two trees of one structure; a leaf
+    is a tensor or a cache's (shape, dtype)."""
+    if isinstance(values, dict):
+        for k in values:
+            yield from _pairs(values[k], shardings[k])
+    elif hasattr(values, "_fields"):          # AdamWState
+        for v, s in zip(values, shardings):
+            if v is not None:
+                yield from _pairs(v, s)
+    else:
+        yield values, shardings
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+
+
+def argument_bytes_per_device(model: LMModel, cfg: RunConfig,
+                              mesh: MeshSpec) -> Dict[str, int]:
+    """Each argument group's bytes on one device under the sharding plan
+    (params, opt_state and the step for a train step, the batch, the cache
+    for decode) and their "total": every leaf's shard shape times its
+    itemsize."""
+    arch, shape = model.arch, cfg.shape
+    params_abs = abstract_params(model.schema(),
+                                 getattr(torch, cfg.param_dtype))
+    out = {"params": sum(_nbytes(shard_shape(p.shape, s.spec, mesh), p.dtype)
+                         for p, s in _pairs(params_abs, param_shardings(
+                             model, cfg, mesh)))}
+    binfo = batch_specs(arch, shape, mesh, cfg.sharding.strategy)
+    out["batch"] = sum(_nbytes(shard_shape(b.shape, s.spec, mesh), b.dtype)
+                       for b, s in _pairs(binfo["specs"],
+                                          binfo["shardings"]))
+    if shape.kind == StepKind.TRAIN:
+        opt_abs = adamw.abstract_state(params_abs, cfg.train)
+        oshard = opt_state_shardings(model, cfg, mesh, params_abs, opt_abs)
+        out["opt_state"] = sum(
+            _nbytes(shard_shape(o.shape, s.spec, mesh), o.dtype)
+            for o, s in _pairs(opt_abs, oshard))
+        out["step"] = torch.int32.itemsize
+    elif shape.kind == StepKind.DECODE:
+        B, cap = shape.global_batch, shape.seq_len
+        spec = model.cache_spec(B, cap)
+        out["cache"] = sum(
+            _nbytes(shard_shape(leaf[0], s.spec, mesh), leaf[1])
+            for leaf, s in _pairs(spec, cache_shardings(
+                model, cfg, mesh, B, cap)))
+    out["total"] = sum(out.values())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the trace: FLOPs, bytes, live memory
+# ---------------------------------------------------------------------------
+def card_stand_in() -> torch.device:
+    """The device whose fake tensors stand for the card's: ``cuda:0``
+    where there is a card, the CPU where there is none."""
+    return (torch.device("cuda", 0) if torch.cuda.is_available()
+            else torch.device("cpu"))
+
+
+@contextlib.contextmanager
+def fake_card() -> Iterator[torch.device]:
+    """A FakeTensorMode for the card's stand-in (``card_stand_in``), which
+    it yields: tensors made inside it allocate nothing, and the kernels'
+    operators run their fake implementations (no build, no launch)."""
+    device = card_stand_in()
+    if device.type == "cuda":
+        # FakeTensorMode makes, and frees, one 1-element tensor on a card
+        # the first time a process makes a fake tensor there (to set up
+        # autograd's context); made here, before the mode opens, it never
+        # falls inside a trace
+        init_gpu_context(device)
+    with FakeTensorMode():
+        yield device
+
+
+# operators that move no bytes: allocation without a write, and
+# metadata-only ops that the schema does not mark as views (besides views
+# and ``prim`` queries such as a fake tensor's device)
+_NO_TRAFFIC = {
+    torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default,
+    torch.ops.aten.empty_like.default, torch.ops.aten.new_empty.default,
+    torch.ops.aten.new_empty_strided.default,
+    torch.ops.aten._unsafe_view.default, torch.ops.aten.lift_fresh.default,
+    torch.ops.aten.detach.default, torch.ops.aten.alias.default,
+}
+
+
+def _tensors(tree: Any):
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+class _Tracker(TorchDispatchMode):
+    """Counts, over every operator that runs, the bytes of its tensor
+    inputs and outputs on ``device`` (views and metadata-only operators
+    left out), and follows the live bytes of ``device``'s storages: each
+    storage an operator makes is counted, rounded up as the caching
+    allocator rounds it, from its creation until it is freed."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.bytes = 0
+        self.live = 0
+        self.peak = 0
+        self._seen = WeakIdKeyDictionary()
+
+    def adopt(self, tree: Any) -> None:
+        """Count the storages of ``tree``'s tensors (the step's arguments)
+        as live."""
+        for t in _tensors(tree):
+            self._note(t)
+
+    def _note(self, t: torch.Tensor) -> None:
+        if t.device != self.device:
+            return
+        st = t.untyped_storage()
+        if st in self._seen:
+            return
+        n = -(-st.nbytes() // ALLOC_ROUND) * ALLOC_ROUND
+        self._seen[st] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace != "prim" and func not in _NO_TRAFFIC and \
+                not func.is_view:
+            for t in _tensors((args, kwargs)) + _tensors(out):
+                if t.device == self.device:
+                    self.bytes += t.numel() * t.element_size()
+        for t in _tensors(out):
+            self._note(t)
+        return out
+
+
+def describe(tree: Any) -> Any:
+    """``tree`` with each tensor as [shape, dtype name] and a NamedTuple
+    as a dict of its fields."""
+    if isinstance(tree, torch.Tensor):
+        return [list(tree.shape), str(tree.dtype).replace("torch.", "")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: describe(v) for k, v in zip(tree._fields, tree)}
+    if isinstance(tree, dict):
+        return {k: describe(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return [describe(v) for v in tree]
+    return tree
+
+
+def trace(fn: Callable, args: Tuple, device: torch.device) -> Dict[str, Any]:
+    """Run ``fn(*args)`` once under the counters: FLOPs
+    (``FlopCounterMode``, the kernels' operators by their formulas), the
+    bytes every operator reads and writes on ``device`` (eager PyTorch
+    launches a kernel an operator, so this is the eager path's
+    device-memory traffic before caches), the live bytes at the start
+    (the arguments) and at their peak, and the outputs' shapes and dtypes.
+    On fake tensors nothing is allocated or launched; on real ones the
+    same counters describe a real run."""
+    tracker = _Tracker(device)
+    tracker.adopt(args)
+    start = tracker.live
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as flop_counter, tracker:
+        out = fn(*args)
+    seconds = time.perf_counter() - t0
+    return {"flops": int(flop_counter.get_total_flops()),
+            "bytes": int(tracker.bytes),
+            "argument_bytes": int(start),
+            "peak_bytes": int(tracker.peak),
+            "step_peak_bytes": int(tracker.peak - start),
+            "outputs": describe(out),
+            "seconds": seconds}
+
+
+def fake_like(tree: Any, device: torch.device) -> Any:
+    """Fake tensors on ``device`` with the shapes and dtypes of ``tree``'s
+    ``meta`` tensors or (shape, dtype) leaves (call inside ``fake_card``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(fake_like(v, device) for v in tree))
+    if isinstance(tree, dict):
+        return {k: fake_like(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        shape, dtype = tree
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.empty(tree.shape, dtype=tree.dtype, device=device)
+
+
+def model_tp(mesh: MeshSpec, cfg: RunConfig) -> int:
+    """The model's tensor-parallel padding: the mesh's "model" size, 1
+    under fsdp or decode_dshard (as the reference)."""
+    if cfg.sharding.strategy == "fsdp" or cfg.sharding.decode_dshard:
+        return 1
+    return mesh.shape["model"]
+
+
+def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
+               cfg: RunConfig, kernel_mode: Optional[str] = None):
+    """(model, step function, its arguments as fake tensors on the card's
+    stand-in). Call inside ``fake_card``. The model runs the kernels'
+    route on the stand-in; ``kernel_mode="ref"`` traces the plain versions
+    in place of the kernels' operators."""
+    dev = card_stand_in()
+    model = LMModel(arch, tp=model_tp(mesh, cfg), remat=cfg.train.remat,
+                    kernel_mode=kernel_mode or "cuda", device=dev)
+    params = fake_like(abstract_params(model.schema(),
+                                        getattr(torch, cfg.param_dtype)), dev)
+    binfo = batch_specs(arch, shape, mesh, cfg.sharding.strategy)
+    data = fake_like(binfo["specs"], dev)
+    if shape.kind == StepKind.TRAIN:
+        opt = fake_like(adamw.abstract_state(params, cfg.train), dev)
+        return model, make_train_step(model, cfg), (params, opt, data, 0)
+    if shape.kind == StepKind.PREFILL:
+        return model, model.prefill, (params, data)
+    cache = fake_like(model.cache_spec(shape.global_batch, shape.seq_len),
+                       dev)
+    return model, model.decode_step, (params, cache, data)
+
+
+def trace_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
+               cfg: RunConfig, kernel_mode: Optional[str] = None
+               ) -> Dict[str, Any]:
+    """The counterpart of the reference's ``_cell_costs``: one pass of the
+    cell's step on fake tensors (``trace``), and the device it stood on."""
+    with fake_card() as dev:
+        _, fn, args = build_cell(arch, shape, mesh, cfg, kernel_mode)
+        out = trace(fn, args, dev)
+    out["trace_device"] = str(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# depth calibration: a full-depth trace where it fits the time budget;
+# where the step runs a per-token Python loop (the WKV6 backward, autograd
+# through the plain ``wkv6_ref``, ~16 ms a token a layer on fake tensors:
+# rwkv6-7b's train_4k would take ~35 min at full depth, ~3 min as two
+# shallow traces), shallow traces extrapolated linearly in depth.
+# ---------------------------------------------------------------------------
+_COST_KEYS = ("flops", "bytes", "step_peak_bytes")
+
+
+def needs_calibration(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    """True where a full-depth trace would step a plain scan token by
+    token: rwkv's train step (its WKV6 backward)."""
+    return arch.family == "ssm" and shape.kind == StepKind.TRAIN
+
+
+def calibrate_costs(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
+                    cfg: RunConfig) -> Dict[str, Any]:
+    """Full-depth FLOPs, bytes and step peak of a stack of identical
+    layers, extrapolated from traces at 1 and 2 layers. Eager costs are
+    linear in the depth of such a stack (one stacked leaf a parameter,
+    every layer the same operators), so FLOPs and bytes are exact. The
+    peak is not additive in general: on the reduced configs that the tests
+    also trace at full depth it is exact for train and decode steps (the
+    only cells ``run_cell`` extrapolates are train steps) and over by at
+    most two of the allocator's blocks for a prefill. The reference's
+    hybrid and MoE structures are not ported: those stacks trace at full
+    depth."""
+    if arch.family == "hybrid" or (arch.moe is not None
+                                   and arch.moe.n_dense_layers):
+        raise ValueError(f"{arch.name}: calibrate_costs extrapolates a "
+                         "stack of identical layers")
+    c1, c2 = (trace_cell(dataclasses.replace(arch, n_layers=n), shape, mesh,
+                         cfg) for n in (1, 2))
+    return {k: c1[k] + (c2[k] - c1[k]) * (arch.n_layers - 1)
+            for k in _COST_KEYS}
+
+
+# ---------------------------------------------------------------------------
+# one cell
+# ---------------------------------------------------------------------------
+def model_flops(arch: ArchConfig, shape: ShapeConfig) -> float:
+    """6 N_active D a trained token, 2 N_active D a prefilled or generated
+    one (the reference's)."""
+    tokens = shape.global_batch * (shape.seq_len
+                                   if shape.kind != StepKind.DECODE else 1)
+    mult = 6.0 if shape.kind == StepKind.TRAIN else 2.0
+    return mult * arch.active_param_count() * tokens
+
+
+def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
+             *, multi_pod: bool,
+             peak_flops: float, hbm_bw: float, link_bw: float,
+             device_memory: float, rates_source: str = "",
+             one_card: bool = False,
+             policy: str = "interleave", sequence_parallel: bool = True,
+             accum: Optional[int] = None, strategy: str = "tp",
+             accum_bf16: Optional[bool] = None,
+             decode_dshard: bool = False,
+             param_dtype: Optional[str] = None,
+             verbose: bool = True) -> Dict[str, Any]:
+    """The cell's report. ``arch`` and ``shape`` are names
+    (``configs.ARCHS``, ``LM_SHAPES``) or configs (a cut of one).
+    ``one_card`` traces the one-card mesh (both axes of size 1), where the
+    trace's peak is the device's; otherwise the production mesh
+    (``multi_pod``: 2 x 16 x 16, else 16 x 16). ``param_dtype`` replaces
+    ``cell_config``'s parameter dtype."""
+    arch = get_arch(arch) if isinstance(arch, str) else arch
+    shape = LM_SHAPES[shape] if isinstance(shape, str) else shape
+    arch_name, shape_name = arch.name, shape.name
+    mesh = one_card_mesh() if one_card else \
+        make_production_mesh(multi_pod=multi_pod)
+    report: Dict[str, Any] = {
+        "arch": arch_name, "shape": shape_name, "n_layers": arch.n_layers,
+        "mesh": mesh_name(mesh),
+        "policy": policy, "sequence_parallel": sequence_parallel,
+        "strategy": strategy,
+    }
+    reason = skip_reason(arch, shape)
+    if reason:
+        report["status"] = "skipped"
+        report["reason"] = reason
+        return report
+
+    cfg = cell_config(arch, shape, policy=policy,
+                      sequence_parallel=sequence_parallel, accum=accum,
+                      strategy=strategy, accum_bf16=accum_bf16)
+    if param_dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
+    if decode_dshard:
+        report["decode_dshard"] = True
+        cfg = dataclasses.replace(
+            cfg, sharding=dataclasses.replace(cfg.sharding,
+                                              decode_dshard=True))
+    report["accum_steps"] = cfg.train.accum_steps
+    report["param_dtype"] = cfg.param_dtype
+    chips = n_chips(mesh)
+
+    # ---- the arguments on one device, from the sharding plan ---------------
+    plan_model = LMModel(arch, tp=model_tp(mesh, cfg), device="meta")
+    args_b = argument_bytes_per_device(plan_model, cfg, mesh)
+
+    # ---- the trace ----------------------------------------------------------
+    t0 = time.perf_counter()
+    if needs_calibration(arch, shape):
+        cost = calibrate_costs(arch, shape, mesh, cfg)
+        report["depth"] = "extrapolated from traces at 1 and 2 layers"
+        report["outputs"] = None
+    else:
+        cost = trace_cell(arch, shape, mesh, cfg)
+        report["depth"] = "full"
+        report["outputs"] = cost["outputs"]
+        report["trace_device"] = cost["trace_device"]
+    report["trace_s"] = round(time.perf_counter() - t0, 1)
+    report["status"] = "ok"
+
+    # ---- memory (proves it fits on the one-card mesh) -----------------------
+    report["argument_bytes_per_device"] = args_b
+    if chips == 1:
+        temp_b = cost["step_peak_bytes"]
+        per_device = args_b["total"] + temp_b
+        report["temp_bytes_per_device"] = temp_b
+        report["bytes_per_device"] = per_device
+        report["fits"] = bool(per_device < device_memory)
+    else:
+        report["temp_bytes_per_device"] = None
+        report["bytes_per_device"] = None
+        report["fits"] = None
+        report["temp_bytes_note"] = SHARDED_STEP
+        report["arguments_fit"] = bool(args_b["total"] < device_memory)
+    report["device_memory"] = device_memory
+
+    # ---- FLOPs, bytes, collectives ------------------------------------------
+    report["flops"] = float(cost["flops"])
+    report["flops_per_device"] = cost["flops"] / chips
+    report["bytes_accessed"] = float(cost["bytes"])
+    report["bytes_accessed_per_device"] = cost["bytes"] / chips
+    if chips == 1:
+        coll = 0.0
+        report["collective_operand_bytes_per_device"] = 0.0
+        report["collective_wire_bytes_per_device"] = 0.0
+    else:
+        coll = None
+        report["collective_operand_bytes_per_device"] = None
+        report["collective_wire_bytes_per_device"] = None
+        report["collectives_note"] = SHARDED_STEP
+
+    # ---- roofline terms -------------------------------------------------------
+    compute_s = report["flops"] / (chips * peak_flops)
+    memory_s = report["bytes_accessed"] / (chips * hbm_bw)
+    collective_s = None if coll is None else coll / link_bw
+    terms = [("compute", compute_s), ("memory", memory_s)]
+    if collective_s is not None:
+        terms.append(("collective", collective_s))
+    report["roofline"] = {
+        "compute_s": compute_s, "memory_s": memory_s,
+        "collective_s": collective_s,
+        "bottleneck": max(terms, key=lambda kv: kv[1])[0],
+    }
+    report["rates"] = {"peak_flops": peak_flops, "hbm_bw": hbm_bw,
+                       "link_bw": link_bw, "device_memory": device_memory,
+                       "source": rates_source}
+    mflops = model_flops(arch, shape)
+    report["model_flops"] = mflops
+    report["useful_flops_ratio"] = (mflops / report["flops"]
+                                    if report["flops"] else None)
+    step_s = max(s for _, s in terms)
+    report["roofline"]["step_s_lower_bound"] = step_s
+    report["roofline"]["mfu_bound"] = (
+        mflops / (step_s * chips * peak_flops) if step_s > 0 else None)
+    if verbose:
+        print(json.dumps(report, indent=2, default=str))
+    return report
+
+
+# ---------------------------------------------------------------------------
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", choices=["off", "on", "both"],
+                    default="off")
+    ap.add_argument("--one-card", action="store_true",
+                    help="the one-card mesh in place of the production one")
+    ap.add_argument("--policy", default="interleave",
+                    choices=[p.value for p in PlacementPolicy])
+    ap.add_argument("--no-sp", action="store_true",
+                    help="disable sequence parallelism")
+    ap.add_argument("--strategy", default="tp", choices=["tp", "fsdp"])
+    ap.add_argument("--accum-bf16", action="store_true")
+    ap.add_argument("--decode-dshard", action="store_true",
+                    help="shard decode KV caches over head_dim (INTERLEAVE "
+                         "applied to the cache: avoids kv-head padding)")
+    ap.add_argument("--accum", type=int, default=None)
+    ap.add_argument("--out-dir", default=None)
+    args = ap.parse_args(argv)
+
+    cells = []
+    archs = sorted(ARCHS) if (args.all or not args.arch) else [args.arch]
+    shapes = sorted(LM_SHAPES) if (args.all or not args.shape) else [args.shape]
+    pods = ([None] if args.one_card else
+            {"off": [False], "on": [True], "both": [False, True]}[
+                args.multi_pod])
+    for a in archs:
+        for s in shapes:
+            for mp in pods:
+                cells.append((a, s, mp))
+
+    failures = 0
+    for a, s, mp in cells:
+        where = "card" if mp is None else ("multi" if mp else "single")
+        tag = f"{a}|{s}|{where}"
+        try:
+            rep = run_cell(a, s, multi_pod=bool(mp), one_card=mp is None,
+                           rates_source=H100_SXM_SOURCE, **H100_SXM,
+                           policy=args.policy,
+                           sequence_parallel=not args.no_sp,
+                           accum=args.accum, strategy=args.strategy,
+                           accum_bf16=args.accum_bf16 or None,
+                           decode_dshard=args.decode_dshard)
+        except Exception as e:  # noqa: BLE001 — report and continue
+            rep = {"arch": a, "shape": s,
+                   "mesh": {"card": "1", "multi": "2x16x16",
+                            "single": "16x16"}[where],
+                   "status": "error", "error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()[-2000:]}
+            failures += 1
+            print(f"[FAIL] {tag}: {e}", file=sys.stderr)
+        if args.out_dir:
+            os.makedirs(args.out_dir, exist_ok=True)
+            fname = f"{a}_{s}_{where}"
+            if args.policy != "interleave":
+                fname += f"_{args.policy}"
+            if args.no_sp:
+                fname += "_nosp"
+            if args.strategy != "tp":
+                fname += f"_{args.strategy}"
+            if args.accum_bf16:
+                fname += "_accbf16"
+            if args.decode_dshard:
+                fname += "_dshard"
+            with open(os.path.join(args.out_dir, fname + ".json"), "w") as f:
+                json.dump(rep, f, indent=2, default=str)
+    sys.exit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

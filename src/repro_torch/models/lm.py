@@ -112,10 +112,7 @@ def _mlp_schema(arch: ArchConfig, padded: PaddedDims,
     }
 
 
-def _unsupported(arch: ArchConfig) -> Optional[str]:
-    if arch.family not in ("dense", "moe", "hybrid", "ssm", "audio", "vlm"):
-        return f"the {arch.family} family"
-    return None
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 
 
 class LMModel:
@@ -133,12 +130,9 @@ class LMModel:
                  moe_mesh=None,
                  cache_dtype: torch.dtype = torch.bfloat16,
                  device: Union[None, str, torch.device] = None):
-        missing = _unsupported(arch)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{arch.name}: {missing} comes with a later slice of the "
-                "port; this one runs the dense, moe, hybrid, ssm, audio and "
-                "vlm plans")
+        if arch.family not in FAMILIES:
+            raise ValueError(f"{arch.name}: unknown family {arch.family!r}, "
+                             f"not one of {FAMILIES}")
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r} not in {REMAT}")
         self.arch = arch

@@ -86,13 +86,24 @@ def _token_fraction(ids: torch.Tensor, E: int, K: int) -> torch.Tensor:
     return F.one_hot(ids, E).float().sum(1).mean(0) / K
 
 
+def group_counts(key: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """How many entries of ``key`` (values in [0, n_groups)) fall in each
+    group, (n_groups,) int64: ``torch.bincount(key, minlength=n_groups)``
+    with a size fixed by ``n_groups`` alone, so that a trace on fake
+    tensors (``launch.dryrun``) can follow it."""
+    return torch.zeros(n_groups, dtype=torch.int64,
+                       device=key.device).scatter_add_(
+        0, key.long(), torch.ones(key.shape, dtype=torch.int64,
+                                  device=key.device))
+
+
 def _dispatch_order(key: torch.Tensor, n_groups: int):
     """The stable sort of the flat (token, k) assignments by ``key``:
     (order, sorted keys, each sorted assignment's position in its group,
     group counts)."""
     order = torch.argsort(key, stable=True)
     sk = key[order]
-    counts = torch.bincount(key, minlength=n_groups)
+    counts = group_counts(key, n_groups)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(key.numel(), device=key.device) - starts[sk]
     return order, sk, pos, counts

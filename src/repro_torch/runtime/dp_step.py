@@ -56,7 +56,10 @@ def make_dp_train_step(model: LMModel, cfg: RunConfig, mesh, *,
                               for p, v in _flatten(params)))
         loss, _ = model.loss_fn(_build(paths, leaves), batch,
                                 z_loss=tcfg.z_loss)
-        grads = list(torch.autograd.grad(loss, leaves))
+        # a parameter the loss does not reach gets a zero gradient, as
+        # under the reference's jax.grad (train_loop's value_and_grad)
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
         del leaves
         loss = _pmean(comm, loss.detach())
         resid = [e for _, e in _flatten(errors)] if compress else None

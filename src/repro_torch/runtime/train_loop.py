@@ -64,13 +64,20 @@ def make_train_step(model: LMModel, cfg: RunConfig,
                               for p, v in _flatten(params)))
         loss, metrics = model.loss_fn(_build(paths, leaves), batch,
                                       z_loss=tcfg.z_loss)
-        grads = torch.autograd.grad(loss, leaves)
+        # a parameter the loss does not reach (the audio stub's codebook
+        # embeddings, when the batch brings frame embeddings) gets a zero
+        # gradient, as under the reference's jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 _build(paths, grads))
 
     def train_step(params, opt_state, batch, step):
+        # a factory, not torch.tensor: on the dry run's fake tensors the
+        # step stays fake, where a tensor made from data would be a real
+        # one on the card that the schedule's operators then run on
         lr = schedules.warmup_cosine(
-            torch.tensor(step, dtype=torch.int32, device=model.device),
+            torch.full((), step, dtype=torch.int32, device=model.device),
             peak_lr=tcfg.learning_rate, warmup_steps=tcfg.warmup_steps,
             total_steps=total_steps)
         if accum > 1:

@@ -1294,3 +1294,117 @@ def test_cuda_dist_mesh_of_one_rank_over_nccl(dev, tmp_path):
         assert set(mesh.comm.traffic) == {"all_gather_into_tensor",
                                           "all_reduce", "all_to_all_single"}
     assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_operators_give_the_launch_bits(dev):
+    """Each LM kernel through its ``torch.library`` operator (the
+    wrappers' path) gives the bits of the same C launch made directly,
+    the way the wrappers launched before the operators, and counts one
+    launch."""
+    from repro_torch.kernels.common import stream_handle
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wk_ops
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    q, k, v = rand(2, 300, 8, 128), rand(2, 300, 2, 128), rand(2, 300, 2, 128)
+    before = common.LAUNCHES["flash_attention"]
+    got = fa_ops._launch(q, k, v, causal=True, window=100, q_offset=5,
+                         scale=0.09)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    want = torch.empty_like(q)
+    assert fa_ops._bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          want.data_ptr(), 2, 300, 300, 8, 2, 128, 5, 1, 100,
+                          0.09, stream_handle(dev)) == 0
+    assert torch.equal(got, want)
+
+    a, b = torch.rand(2, 700, 256, device=dev, generator=gen), rand(2, 700,
+                                                                    256)
+    before = common.LAUNCHES["rglru_scan"]
+    got = sc_ops._launch(a, b)
+    assert common.LAUNCHES["rglru_scan"] == before + 1
+    want = torch.empty_like(a)
+    nc = -(-700 // (sc_ops.WARPS * sc_ops.CHUNK))
+    words = torch.empty(2 * nc * 256 + 1, dtype=torch.int64, device=dev)
+    assert sc_ops._bind()(a.data_ptr(), b.data_ptr(), want.data_ptr(), None,
+                          words.data_ptr(), 2, 700, 256, sc_ops.CHUNK,
+                          stream_handle(dev)) == 0
+    assert torch.equal(got, want)
+
+    r, kk, vv = rand(2, 65, 4, 64), rand(2, 65, 4, 64), rand(2, 65, 4, 64)
+    w = torch.rand(2, 65, 4, 64, device=dev, generator=gen)
+    u = rand(4, 64)
+    before = common.LAUNCHES["wkv6"]
+    y, s = wk_ops._launch(r, kk, vv, w, u)
+    assert common.LAUNCHES["wkv6"] == before + 1
+    wy = torch.empty_like(r)
+    ws = torch.empty(2, 4, 64, 64, device=dev)
+    sb, ss, sh, _ = r.stride()
+    assert wk_ops._bind()(r.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                          w.data_ptr(), u.data_ptr(), wy.data_ptr(),
+                          ws.data_ptr(), 2, 65, 4, 64, sb, ss, sh,
+                          stream_handle(dev)) == 0
+    assert torch.equal(y, wy) and torch.equal(s, ws)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_attention_runs_the_kernel_in_float32(dev):
+    """bfloat16 q, k, v (bfloat16 parameters) go through the kernel as
+    float32 copies and the backward recomputes from the same copies: the
+    output and the gradients are the float32 route's on those, in
+    bfloat16."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(1, 64, 4, 64, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    g = torch.randn(1, 64, 4, 64, device=dev, generator=gen).to(
+        torch.bfloat16)
+    before = common.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v)
+    assert common.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16
+    got.backward(g)
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = flash_attention(q32, k32, v32).to(torch.bfloat16)
+    want.backward(g)
+    assert torch.equal(got, want)
+    for t, t32 in ((q, q32), (k, k32), (v, v32)):
+        assert t.grad.dtype == torch.bfloat16
+        assert torch.equal(t.grad, t32.grad.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_fake_trace_allocates_and_launches_nothing(dev):
+    """The dry run's trace on the card's stand-in (a fake cuda:0) of a
+    train step through all three kernels' operators and of an rwkv
+    prefill: the card's allocated and peak bytes stay as they were and no
+    kernel launches. The first ``fake_card`` of the process makes
+    FakeTensorMode's one 1-element set-up tensor before the gates."""
+    import dataclasses
+    from repro_torch.configs.reduced import REDUCED
+    from repro_torch.core.config import ShapeConfig, StepKind
+    from repro_torch.launch import dryrun
+    with dryrun.fake_card():       # FakeTensorMode's one-time set-up
+        pass
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc = torch.cuda.memory_allocated()
+    before = dict(common.LAUNCHES)
+    mesh = dryrun.one_card_mesh()
+    for arch, kind in (
+            (dataclasses.replace(REDUCED["recurrentgemma-2b"], head_dim=64),
+             StepKind.TRAIN),
+            (REDUCED["rwkv6-7b"], StepKind.TRAIN),
+            (REDUCED["rwkv6-7b"], StepKind.PREFILL)):
+        shape = ShapeConfig("s", kind, 16, 2)
+        out = dryrun.trace_cell(arch, shape, mesh,
+                                dryrun.cell_config(arch, shape))
+        assert out["trace_device"] == "cuda:0"
+        assert out["flops"] > 0 and out["step_peak_bytes"] > 0
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == alloc
+    assert torch.cuda.max_memory_allocated() == alloc
+    assert common.LAUNCHES == before
