@@ -157,9 +157,26 @@ points:
     ``run_cell``'s one-card ``fits``: phi3.5-moe's prefill fits at 12
     layers and not at 32, deepseek-v3 at 4 layers and 1 x 1024 fits its
     forward (a prefill) and not its train step;
+  * the sharded step (the sharding plan applied through DTensor) over a
+    one-rank NCCL mesh of shape (1, 1): (a) recurrentgemma-2b's train
+    cell, 3 steps through the sharded step with sequence parallelism and
+    ZeRO-1 state, losses and parameters bit for bit those of the
+    unsharded steps, launches a step, ms a step and the peak; (b)
+    rwkv6-7b at 2 layers, a prefill and a loss with its backward, bit
+    for bit the unsharded route; each LM kernel reached through its
+    sharding rule; (c) the dry run's trace of rank 0 of (a)'s cell, its
+    step peak within 10% of (a)'s measured rise; (d) two ranks sharing
+    the card, threads of this process, on a (data 1, model 2) and a
+    (data 2, model 1) mesh:
+    recurrentgemma-2b at 3 layers and rwkv6-7b at 2, full width, a loss
+    with its gradients and a train step against the unsharded kernel
+    route, every kernel launched on its rank's half of the block;
   * the host us a call of the three LM kernels, layer by layer (wrapper,
     checks and launch, ``torch.library`` operator, its implementation),
-    and a recurrentgemma-2b decode wave's ms.
+    and a recurrentgemma-2b decode wave's ms;
+  * after every timed phase, the dry run's 16 x 16 and 2 x 16 x 16
+    reports of three cells (rank 0's temporaries, ``fits``, collective
+    bytes): predictions one card cannot check.
 
 ``python3 chip_smoke.py --host-cost SRC`` runs only that last timing, on
 the port under SRC (a checkout's ``src``), and prints it as one
@@ -174,8 +191,8 @@ peak memory per phase. Any failed phase exits non-zero. Without a CUDA
 device it exits 1 and prints no result. It imports nothing of JAX and
 nothing of the JAX package.
 
-The last lines of standard output are the dry run's and the host cost's
-numbers, the MLA and MoE phases' numbers,
+The last lines of standard output are the sharded phase's, the dry
+run's and the host cost's numbers, the MLA and MoE phases' numbers,
 the training step's numbers, the DP phase's numbers, the calibration
 report, the kernels' JSON
 record, the card's name and power limit, and
@@ -5037,6 +5054,634 @@ def dryrun_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# the sharded step: the sharding plan through DTensor over a one-rank NCCL
+# mesh, and the dry run's pod-mesh reports
+# ---------------------------------------------------------------------------
+SHARDED_POLICY = "interleave"
+SHARDED_MESH = (("data", "model"), (1, 1))   # NCCL: one rank a card
+# (d): two ranks on the one card, threads of this process
+# (``threaded_ranks``), each mesh splitting one axis in two; full width,
+# the depths cut (recurrentgemma-2b: one super-block, its two recurrent
+# layers and its attention layer), 2 x 256 tokens, a loss with its
+# gradients, then a train step at step 1 (step 0's learning rate is 0)
+SPLIT_RANKS = 2
+SPLIT_MESHES = ((1, 2), (2, 1))               # (data, model)
+# (model, layers, its kernels)
+SPLIT_ARCHS = (("recurrentgemma-2b", 3, ("flash_attention", "rglru_scan")),
+               ("rwkv6-7b", 2, ("wkv6",)))
+SPLIT_B, SPLIT_S, SPLIT_STEPS = 2, 256, 1
+SPLIT_TIMEOUT_S = 300.0
+# against the unsharded kernel route on the same card, distances relative
+# by L2 norm: the losses 1e-5; each gradient leaf 1e-3, the level at which
+# the training phase holds the kernels' grad norm to the plain route's
+# (the backward sums a split product's halves where the unsharded route
+# sums it whole: rwkv6-7b's w_r gradient parts by 1.6e-4 where only the
+# two batch halves' sum differs); the parameters after the steps 1e-5, as
+# DP phase (B) holds its ranks (AdamW scales each element's step by its
+# own gradient's size, so the largest single difference is a share of the
+# learning rate)
+SPLIT_LOSS_RTOL, SPLIT_GRAD_REL, SPLIT_PARAM_REL = 1e-5, 1e-3, 1e-5
+# the pod-mesh reports (arch, shape, 2 x 16 x 16?), run after every timed
+# phase: rank 0 of the sharded step traced under a fake group beside the
+# whole step's trace (yi-34b's and rwkv6-7b's train cells take minutes
+# each: PERF.md has their reports from the dry run's CLI)
+SHARDED_POD_CELLS = (("recurrentgemma-2b", "train_4k", False),
+                     ("qwen3-1.7b", "decode_32k", False),
+                     ("qwen3-1.7b", "decode_32k", True))
+
+
+def sharded_mesh():
+    import numpy as np
+    from repro_torch.core.partitioning import MeshSpec
+    names, sizes = SHARDED_MESH
+    return MeshSpec(names, sizes, np.zeros(sizes, np.int64))
+
+
+def sharded_train(dev, group):
+    """(a): recurrentgemma-2b at full width and depth on the training
+    phase's cell (TRAIN_B x TRAIN_S, fp32 parameters from SEED), sequence
+    parallel, policy SHARDED_POLICY: first TRAIN_STEPS unsharded
+    ``train_loop`` steps (the bits to hold), then (c)'s trace of rank 0
+    of the sharded cell on the one-rank mesh (no device work), then, in
+    ``group`` (the one-rank NCCL group, opened by the callback), the same
+    steps through the sharded step: parameters and opt state placed by
+    the plan as DTensors, the launch counts zeroed just before and read
+    just after each step. Gates: losses and parameters bit-equal to the
+    unsharded steps; every step's launches those of the training phase's
+    step; each kernel reached through its sharding rule; the peak under
+    TRAIN_PEAK_GIB; the traced step peak
+    within DRYRUN_PEAK_TOL of step 0's measured rise. Returns the record."""
+    import dataclasses
+    import gc
+    import statistics
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import (LM_SHAPES, PlacementPolicy,
+                                         RunConfig, ShapeConfig,
+                                         ShardingConfig, StepKind,
+                                         TrainConfig)
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding_plan as plan
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import train_loop
+    arch = get_arch(TRAIN_ARCH)
+    cfg = RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                    train=TrainConfig(warmup_steps=TRAIN_WARMUP),
+                    sharding=ShardingConfig(
+                        policy=PlacementPolicy(SHARDED_POLICY),
+                        sequence_parallel=True))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, TRAIN_B, TRAIN_S, step=s, seed=SEED).items()}
+        for s in range(TRAIN_STEPS)]
+    marks = [time.perf_counter()]
+
+    # the unsharded steps
+    model = LMModel(arch, device=dev)
+    want = train_launch_plan(model.plan)
+    params = model.init_params(seed=SEED)
+    state = adamw.init(params, cfg.train)
+    step_fn = train_loop.make_train_step(model, cfg, total_steps=TRAIN_STEPS)
+    plain_losses = []
+    for s in range(TRAIN_STEPS):
+        params, state, m = step_fn(params, state, batches[s], s)
+        plain_losses.append(m["loss"].clone())
+    ref = [v.cpu() for v in leaves(params)]
+    del params, state, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    # (c): rank 0 of the sharded cell on the one-card mesh, traced
+    mesh = sharded_mesh()
+    shape = ShapeConfig(f"train_{TRAIN_B}x{TRAIN_S}", StepKind.TRAIN,
+                        TRAIN_S, TRAIN_B)
+    tcfg = dataclasses.replace(cfg, shape=shape, param_dtype="float32")
+    with dryrun.fake_card():            # its one-time set-up, as above
+        pass
+    with dryrun.fake_group(1):
+        # the fake group's device mesh is set up before the trace's gates
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_allocated()
+        fake_dm = device_mesh(mesh, "cuda")
+        log(f"sharded (c): the fake group's device mesh: "
+            f"{torch.cuda.max_memory_allocated() - alloc0} bytes at peak, "
+            f"{torch.cuda.memory_allocated() - alloc0} kept")
+        pred, trace_s = dryrun_no_device_work(
+            "sharded (c) the one-rank cell", lambda: dryrun.trace_cell(
+                arch, shape, mesh, tcfg, sharded=True, dmesh=fake_dm))
+        del fake_dm
+    marks.append(time.perf_counter())
+
+    # the sharded steps over the one-rank NCCL mesh
+    group()
+    dm = device_mesh(mesh, "cuda")
+    smodel = LMModel(arch, sequence_parallel=True, device=dev)
+    params = smodel.init_params(seed=SEED)
+    state = adamw.init(params, cfg.train)
+    oshard = plan.opt_state_shardings(smodel, cfg, mesh, params, state)
+    params = plan.distribute(params, plan.param_shardings(smodel, cfg, mesh),
+                             dm)
+    state = plan.distribute(state, oshard, dm)
+    step_fn = train_loop.make_train_step(smodel, cfg,
+                                         total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    launches, routed, step_ms, losses, rise, tracked = [], [], [], [], 0, None
+    box = {}
+
+    def first(*args):                   # step 0, under the dry run's counters
+        box["out"] = step_fn(*args)
+        return box["out"]
+    for s in range(TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        common.reset_launches()                 # just before the step
+        ev[0].record()
+        if s == 0:
+            tracked = dryrun.trace(first, (params, state, batches[s], s), dev)
+            params, state, m = box.pop("out")
+        else:
+            params, state, m = step_fn(params, state, batches[s], s)
+        ev[1].record()
+        torch.cuda.synchronize()
+        launches.append(dict(common.LAUNCHES))  # just after it
+        routed.append(dict(common.SHARDED_CALLS))
+        if s == 0:
+            rise = torch.cuda.max_memory_allocated() - before
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(m["loss"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss_bits = [torch.equal(a, b) for a, b in zip(losses, plain_losses)]
+    differ = sum(not torch.equal(v.to_local(), r.to(dev))
+                 for v, r in zip(leaves(params), ref))
+    n_leaves = len(ref)
+    marks.append(time.perf_counter())
+    del params, state, m, step_fn, ref, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = (pred["step_peak_bytes"] - rise) / rise
+    rec = dict(
+        arch=TRAIN_ARCH, batch=f"{TRAIN_B} x {TRAIN_S}",
+        policy=SHARDED_POLICY, sequence_parallel=True,
+        mesh="one NCCL rank, (data 1, model 1)",
+        losses=[float(x) for x in plain_losses], loss_bits_equal=loss_bits,
+        param_leaves_differing=differ, param_leaves=n_leaves,
+        launches_per_step=[{n: c[n] for n in want} for c in launches],
+        sharded_calls_per_step=routed, step_ms=step_ms,
+        warm_step_ms=statistics.median(step_ms[1:]),
+        peak_gib=peak,
+        trace_s=trace_s, predicted_step_peak_bytes=pred["step_peak_bytes"],
+        measured_step_peak_bytes=rise,
+        tracked_real_step_peak_bytes=tracked["step_peak_bytes"],
+        peak_rel_err=off, traced_collectives=pred["collectives"],
+        real_collectives=tracked["collectives"],
+        seconds=dict(unsharded=marks[1] - marks[0],
+                     trace=marks[2] - marks[1],
+                     sharded=marks[3] - marks[2]))
+    log(f"sharded (a): {json.dumps(rec)}")
+    if not all(loss_bits) or differ:
+        raise AssertionError(f"sharded (a): losses bit-equal {loss_bits}, "
+                             f"{differ} parameter leaves differ from the "
+                             "unsharded steps")
+    for i, got in enumerate(launches):
+        if {n: got[n] for n in want} != want or got["wkv6"]:
+            raise AssertionError(f"sharded (a): step {i} launched {got}, "
+                                 f"want {want}")
+        if not all(routed[i][n] for n in want):
+            raise AssertionError(f"sharded (a): step {i} reached the "
+                                 f"kernels' sharding rules {routed[i]}")
+    if peak >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"sharded (a): peak {peak:.3f} GiB reaches "
+                             f"{TRAIN_PEAK_GIB}")
+    if abs(off) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"sharded (c): predicted step peak "
+                             f"{pred['step_peak_bytes']} bytes, measured "
+                             f"{rise}: {off:+.4f}, beyond {DRYRUN_PEAK_TOL}")
+    return rec
+
+
+def loss_and_grads(model, params, batch):
+    """(``model``'s loss on ``batch``, the gradients of every leaf of
+    ``params`` in ``leaves`` order), on plain tensors or DTensors alike;
+    ``params`` is left as it is."""
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.optim.adamw import leaves
+    xs = [v.detach().requires_grad_() for v in leaves(params)]
+    it = iter(xs)
+
+    def rebuild(tree):
+        return {k: rebuild(tree[k]) if isinstance(tree[k], dict)
+                else next(it) for k in sorted(tree)}
+    with common.replicating(params):
+        loss, _ = model.loss_fn(rebuild(params), batch)
+        grads = torch.autograd.grad(loss, xs)
+    return loss.detach(), grads
+
+
+def sharded_rwkv(dev):
+    """(b): rwkv6-7b at RWKV_TRAIN_LAYERS of 32 layers, 1 x RWKV_TRAIN_S
+    (the training phase's cut): a prefill and a loss with its backward,
+    unsharded and through the sharded step on the open one-rank NCCL mesh;
+    logits, loss and every gradient bit-equal. Returns the record."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import (LM_SHAPES, RunConfig,
+                                         ShardingConfig)
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.launch import sharding_plan as plan
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.lm import LMModel
+    arch = dataclasses.replace(get_arch(RWKV_ARCH),
+                               n_layers=RWKV_TRAIN_LAYERS)
+    cfg = RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                    sharding=ShardingConfig(sequence_parallel=True))
+    mesh = sharded_mesh()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, 1, RWKV_TRAIN_S, step=0, seed=SEED).items()}
+
+    def run(model, params, b):
+        logits, _ = model.prefill(params, {"tokens": b["tokens"]})
+        return (logits.detach(),) + loss_and_grads(model, params, b)
+
+    model = LMModel(arch, device=dev)
+    params = model.init_params(seed=SEED)
+    logits_u, loss_u, grads_u = run(model, params, batch)
+    smodel = LMModel(arch, sequence_parallel=True, device=dev)
+    dm = device_mesh(mesh, "cuda")
+    dparams = plan.distribute(params, plan.param_shardings(smodel, cfg,
+                                                           mesh), dm)
+    bsh = plan.batch_specs(arch, dataclasses.replace(
+        cfg.shape, global_batch=1, seq_len=RWKV_TRAIN_S), mesh)["shardings"]
+    dbatch = plan.distribute(batch, {k: bsh[k] for k in batch}, dm)
+    common.reset_launches()                     # just before the path
+    logits_s, loss_s, grads_s = run(smodel, dparams, dbatch)
+    torch.cuda.synchronize()
+    launched, routed = dict(common.LAUNCHES), dict(common.SHARDED_CALLS)
+    same_logits = torch.equal(logits_s.full_tensor(), logits_u)
+    same_loss = torch.equal(loss_s.full_tensor(), loss_u)
+    differ = sum(not torch.equal(g.full_tensor(), u)
+                 for g, u in zip(grads_s, grads_u))
+    rec = dict(arch=RWKV_ARCH, layers=RWKV_TRAIN_LAYERS,
+               batch=f"1 x {RWKV_TRAIN_S}", logits_bits_equal=same_logits,
+               loss_bits_equal=same_loss, grad_leaves_differing=differ,
+               grad_leaves=len(grads_u), launches=launched,
+               sharded_calls=routed)
+    log(f"sharded (b): {json.dumps(rec)}")
+    del params, dparams, grads_u, grads_s, logits_u, logits_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (same_logits and same_loss) or differ:
+        raise AssertionError(f"sharded (b): logits {same_logits}, loss "
+                             f"{same_loss}, {differ} grads differ")
+    if not launched["wkv6"] or not routed["wkv6"]:
+        raise AssertionError(f"sharded (b): wkv6 launched {launched}, "
+                             f"through its rule {routed}")
+    return rec
+
+
+def threaded_ranks(fn, world: int):
+    """``fn(rank)`` on ``world`` threads of this process, each a rank of a
+    threaded process group (the "threaded" backend of PyTorch's own
+    distributed tests: a collective copies between the ranks' tensors, on
+    any device; autograd runs each backward in its caller's thread), so
+    that several ranks share the one card, which NCCL refuses and gloo
+    does not do (its CUDA all-gather crashes in PyTorch 2.11). DTensor's
+    implicit-replication flag is held on for the whole run: the port's
+    entry points turn it on and off around themselves, and two ranks in
+    one process would turn it off under each other. Returns the ranks'
+    results; raises where a rank raised or did not end in
+    SPLIT_TIMEOUT_S."""
+    import threading
+    import traceback
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.tensor.experimental as experimental
+    from torch.distributed.tensor import DTensor
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+    results, errors = [None] * world, []
+    store = dist.HashStore()
+
+    def rank_main(rank):
+        DTensor._op_dispatcher._allow_implicit_replication = True
+        dist.init_process_group("threaded", rank=rank, world_size=world,
+                                store=store)
+        # no destroy_process_group: PyTorch 2.11's fails on the threaded
+        # world, which ``_uninstall_threaded_pg`` drops whole
+        try:
+            results[rank] = fn(rank)
+        except BaseException as exc:
+            errors.append((rank, traceback.format_exc()))
+            mt.ProcessLocalGroup.exception_handle(exc)
+    held = experimental.implicit_replication
+    experimental.implicit_replication = contextlib.nullcontext
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mt._install_threaded_pg()
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True)
+               for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + SPLIT_TIMEOUT_S
+        for t in threads:
+            t.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        mt._uninstall_threaded_pg()
+        mt.ProcessLocalGroup.reset()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        experimental.implicit_replication = held
+        DTensor._op_dispatcher._allow_implicit_replication = False
+    if errors:
+        raise RuntimeError(f"rank {errors[0][0]} raised:\n{errors[0][1]}")
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError(f"the ranks did not end in {SPLIT_TIMEOUT_S} s")
+    return results
+
+
+def split_case(dev, name, layers, sizes):
+    """(d) for one model and mesh: ``name`` at ``layers`` layers and full
+    width, SPLIT_B x SPLIT_S, on the (data, model) mesh of ``sizes``,
+    model-parallel padding at its "model" size. First the unsharded
+    kernel route in this thread: one loss and its gradients, then
+    SPLIT_STEPS train steps from step 1; then the same through the sharded step on
+    SPLIT_RANKS ranks (``threaded_ranks``), sequence parallel, policy
+    SHARDED_POLICY, parameters, opt state and batch placed by the plan.
+    The launches (of all ranks), the calls through the kernels' rules and
+    the shapes each kernel was launched on (its first input's) are read
+    around each part. Returns the record, each rank's worst differences
+    from the unsharded route."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import (LM_SHAPES, PlacementPolicy,
+                                         RunConfig, ShardingConfig,
+                                         TrainConfig)
+    from repro_torch.core.partitioning import MeshSpec
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wk_ops
+    from repro_torch.launch import sharding_plan as plan
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import train_loop
+    arch = dataclasses.replace(get_arch(name), n_layers=layers)
+    mesh = MeshSpec(("data", "model"), sizes,
+                    np.arange(SPLIT_RANKS).reshape(sizes))
+    tp = sizes[1]
+    cfg = RunConfig(arch=arch, shape=dataclasses.replace(
+        LM_SHAPES["train_4k"], global_batch=SPLIT_B, seq_len=SPLIT_S),
+        train=TrainConfig(warmup_steps=TRAIN_WARMUP),
+        sharding=ShardingConfig(policy=PlacementPolicy(SHARDED_POLICY),
+                                sequence_parallel=True))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, SPLIT_B, SPLIT_S, step=s, seed=SEED).items()}
+        for s in range(SPLIT_STEPS)]
+    def paths(tree, prefix=""):
+        if not isinstance(tree, dict):
+            return [prefix[:-1]]
+        return [q for k in sorted(tree) for q in paths(tree[k],
+                                                      f"{prefix}{k}/")]
+    names = paths(LMModel(arch, tp=tp, device="meta").schema())
+    shapes = {}
+    spied = {"flash_attention": fa_ops, "rglru_scan": sc_ops,
+             "wkv6": wk_ops}
+    real = {n: m._launch for n, m in spied.items()}
+
+    def spy(n):
+        def launch(x, *args, **kwargs):
+            shapes.setdefault(n, set()).add(tuple(x.shape))
+            return real[n](x, *args, **kwargs)
+        return launch
+
+    def run(model, params, state, batch0):
+        """(loss, grads, step losses, final params), as they lie."""
+        loss, grads = loss_and_grads(model, params, batch0)
+        step_fn = train_loop.make_train_step(model, cfg,
+                                             total_steps=SPLIT_STEPS + 1)
+        losses = []
+        for s in range(SPLIT_STEPS):
+            params, state, m = step_fn(params, state, batches[s], s + 1)
+            losses.append(m["loss"])
+        return loss, list(grads), losses, list(leaves(params))
+
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).double()
+
+    def compare(got):
+        """A rank's ``run`` against the unsharded one, leaf by leaf on the
+        card: the largest |difference| over the largest |value| of the
+        losses, and relative L2 distances of the grads (each leaf's and
+        all) and of the parameters."""
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        def sums(xs, ws):
+            """[(squared distance, squared norm, max |difference|, max
+            |value|)] a leaf."""
+            out = []
+            for x, w in zip(xs, ws):
+                x, w = whole(x), w.double()
+                out.append((float((x - w).square().sum()),
+                            float(w.square().sum()),
+                            float((x - w).abs().max()),
+                            float(w.abs().max())))
+            return out
+        g, p = sums(got[1], want[1]), sums(got[3], want[3])
+        worst = max(range(len(g)), key=lambda i: g[i][2] / g[i][3])
+        return dict(
+            loss_rel_err=rel(whole(got[0]), want[0].double()),
+            step_loss_rel_err=max(rel(whole(x), w.double())
+                                  for x, w in zip(got[2], want[2])),
+            grad_l2_rel_err=(sum(t[0] for t in g)
+                             / sum(t[1] for t in g)) ** 0.5,
+            grad_leaf_l2_rel_err=max((t[0] / t[1]) ** 0.5 for t in g),
+            grad_rel_err=g[worst][2] / g[worst][3],
+            grad_worst_leaf=names[worst],
+            param_rel_err=(sum(t[0] for t in p)
+                           / sum(t[1] for t in p)) ** 0.5,
+            param_abs_err=max(t[2] for t in p))
+
+    def sharded(rank):
+        dm = device_mesh(mesh, dev.type)
+        smodel = LMModel(arch, tp=tp, sequence_parallel=True, device=dev)
+        params = smodel.init_params(seed=SEED)
+        state = adamw.init(params, cfg.train)
+        oshard = plan.opt_state_shardings(smodel, cfg, mesh, params, state)
+        params = plan.distribute(
+            params, plan.param_shardings(smodel, cfg, mesh), dm)
+        state = plan.distribute(state, oshard, dm)
+        bsh = plan.batch_specs(arch, cfg.shape, mesh)["shardings"]
+        return compare(run(smodel, params, state, plan.distribute(
+            batches[0], {k: bsh[k] for k in batches[0]}, dm)))
+
+    def counted(fn):
+        """(fn(), launches, calls through the rules, launched shapes)."""
+        shapes.clear()
+        common.reset_launches()
+        out = fn()
+        return (out, {n: common.LAUNCHES[n] for n in spied},
+                {n: common.SHARDED_CALLS[n] for n in spied},
+                {n: sorted(v) for n, v in shapes.items()})
+
+    for n, m in spied.items():
+        m._launch = spy(n)
+    try:
+        model = LMModel(arch, tp=tp, device=dev)
+        params = model.init_params(seed=SEED)
+        want, want_launches, _, want_shapes = counted(lambda: run(
+            model, params, adamw.init(params, cfg.train), batches[0]))
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        got, launches, routed, got_shapes = counted(
+            lambda: threaded_ranks(sharded, SPLIT_RANKS))
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for n, m in spied.items():
+            m._launch = real[n]
+
+    return dict(
+        arch=name, layers=layers, mesh=dict(zip(("data", "model"), sizes)),
+        loss=float(want[0]), leaves=len(want[3]), ranks=got,
+        launches=launches, unsharded_launches=want_launches,
+        sharded_calls=routed, local_shapes=got_shapes,
+        unsharded_shapes=want_shapes)
+
+
+def halved(shape, dim):
+    return tuple(n // 2 if i == dim else n for i, n in enumerate(shape))
+
+
+def sharded_split(dev):
+    """(d): the sharded step on real splits, SPLIT_RANKS ranks sharing the
+    one card (``split_case`` for each model of SPLIT_ARCHS on each mesh of
+    SPLIT_MESHES). Gates, on every rank, model and mesh: the loss, the
+    step losses, every gradient leaf and the parameters after the steps
+    within SPLIT_LOSS_RTOL, SPLIT_GRAD_REL and SPLIT_PARAM_REL of the
+    unsharded kernel route (relative L2 distances); each of the model's
+    kernels launched, every call through its rule, and every launch on a
+    local block: the unsharded launch's shape halved along the split dim
+    (the batch under
+    the data split; heads or width, dim 2, under the model split).
+    Returns the records."""
+    recs = []
+    for name, layers, kernels in SPLIT_ARCHS:
+        for sizes in SPLIT_MESHES:
+            t0 = time.perf_counter()
+            rec = split_case(dev, name, layers, sizes)
+            rec["seconds"] = time.perf_counter() - t0
+            log(f"sharded (d): {json.dumps(rec)}")
+            recs.append(rec)
+            label = f"sharded (d) {name} {rec['mesh']}"
+            for r, e in enumerate(rec["ranks"]):
+                if e["loss_rel_err"] > SPLIT_LOSS_RTOL or \
+                        e["step_loss_rel_err"] > SPLIT_LOSS_RTOL or \
+                        e["grad_leaf_l2_rel_err"] > SPLIT_GRAD_REL or \
+                        e["param_rel_err"] > SPLIT_PARAM_REL:
+                    raise AssertionError(f"{label}: rank {r} beyond the "
+                                         f"unsharded route: {e}")
+            dim = 0 if rec["mesh"]["data"] > 1 else 2
+            for n in kernels:
+                want = sorted(halved(s, dim)
+                              for s in rec["unsharded_shapes"].get(n, ()))
+                if not rec["unsharded_launches"][n] or \
+                        not rec["launches"][n] or \
+                        not rec["sharded_calls"][n] or \
+                        rec["local_shapes"].get(n) != want:
+                    raise AssertionError(
+                        f"{label}: {n} launched {rec['launches'][n]} times "
+                        f"({rec['unsharded_launches'][n]} unsharded), "
+                        f"{rec['sharded_calls'][n]} through its rule, on "
+                        f"{rec['local_shapes'].get(n)}, want {want}")
+    return recs
+
+
+def sharded_phase(dev):
+    """The sharded step on the card: (a) ``sharded_train`` and (b)
+    ``sharded_rwkv`` over one NCCL rank (NCCL puts one rank on a card),
+    the trace of (a)'s cell, (c), inside ``sharded_train``; then (d)
+    ``sharded_split``, two ranks sharing the card that split a mesh axis.
+    Returns ({kernel: launches of (a)'s step and (b)}, the phase's
+    numbers)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import dist as tdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        store = dist.FileStore(os.path.join(tempfile.mkdtemp(
+            prefix="sharded_store_"), "store"), 1)
+
+        def group():
+            stack.enter_context(tdist.process_group(
+                DP_BACKEND, rank=0, world_size=1, store=store,
+                timeout=DP_GROUP_TIMEOUT))
+            log(f"sharded: group up, backend {dist.get_backend()}, world "
+                f"size {dist.get_world_size()}")
+        a = sharded_train(dev, group)
+        peak_line("sharded (a)")
+        t_a = time.perf_counter()
+        b = sharded_rwkv(dev)
+        peak_line("sharded (b)")
+    t_b = time.perf_counter()
+    d = sharded_split(dev)
+    t_end = time.perf_counter()
+    log(f"sharded phase: {t_end - t0:.3f} s ((a) {t_a - t0:.3f}, (b) "
+        f"{t_b - t_a:.3f}, (d) {t_end - t_b:.3f})")
+    launches = {n: a["launches_per_step"][-1][n]
+                for n in ("flash_attention", "rglru_scan")}
+    launches["wkv6"] = b["launches"]["wkv6"]
+    return launches, dict(train=a, rwkv=b, split=d, seconds=t_end - t0)
+
+
+def pod_reports_phase():
+    """(c)'s pod-mesh reports, after every timed phase: ``run_cell`` of
+    each of SHARDED_POD_CELLS with the CLI's H100 SXM data-sheet rates
+    (rank 0 of the sharded step traced under a fake group of the mesh's
+    size, the whole step's trace beside it), predictions one card cannot
+    check. Raises where a report lacks its temporaries, ``fits`` or
+    collective bytes. Returns the reports' main fields."""
+    from repro_torch.launch import dryrun
+    keys = ("arch", "shape", "mesh", "status", "trace_s",
+            "temp_bytes_per_device", "bytes_per_device", "fits",
+            "collective_operand_bytes_per_device",
+            "collective_wire_bytes_per_device", "roofline", "rates")
+    t0 = time.perf_counter()
+    reps = []
+    for arch, shape, multi in SHARDED_POD_CELLS:
+        rep = dryrun.run_cell(arch, shape, multi_pod=multi,
+                              rates_source=dryrun.H100_SXM_SOURCE,
+                              verbose=False, **dryrun.H100_SXM)
+        rep = {k: rep.get(k) for k in keys}
+        log("sharded (c), a prediction one card cannot check (the CLI's H100 "
+            f"SXM data-sheet rates): {json.dumps(rep)}")
+        if rep["status"] != "ok" or rep["fits"] is None or \
+                rep["collective_wire_bytes_per_device"] is None:
+            raise AssertionError(f"sharded (c): {rep}")
+        reps.append(rep)
+    log(f"sharded (c) pod-mesh reports: {time.perf_counter() - t0:.3f} s")
+    return reps
+
+
+# ---------------------------------------------------------------------------
 # the host's cost of a call of the three LM kernels, layer by layer
 # ---------------------------------------------------------------------------
 HOST_COST_ROUNDS, WAVE_ROUNDS = 5, 3
@@ -5290,8 +5935,22 @@ def main() -> int:
     mla_fa, mla_numbers = mla_phase(dev)
     torch.cuda.reset_peak_memory_stats()
     dryrun_numbers = dryrun_phase(dev)
+    torch.cuda.reset_peak_memory_stats()
+    sharded_launches, sharded_numbers = sharded_phase(dev)
+    sharded_numbers["train"].update(
+        unsharded_step_ms=train_numbers["step_ms"],
+        unsharded_peak_gib=train_numbers["peak_gib"])
+    log(f"sharded (a) beside the training phase's unsharded step: ms a step "
+        f"{sharded_numbers['train']['warm_step_ms']!r} vs "
+        f"{train_numbers['step_ms']!r}, peak GiB "
+        f"{sharded_numbers['train']['peak_gib']!r} vs "
+        f"{train_numbers['peak_gib']!r}")
+    for row in lm_kernels + [wkv_kernel]:
+        row["launches_sharded"] = sharded_launches[row["name"]]
     host_numbers = host_cost(dev)
     log(f"host cost: {json.dumps(host_numbers)}")
+    # the last timed phase is over: the CPU-bound traces come after it
+    sharded_numbers["pod_reports"] = pod_reports_phase()
     lm_kernels[0].update(
         launches_moe_prefill=moe_fa.pop("launches"),
         launches_moe_train=moe_fa.pop("launches_train"),
@@ -5336,6 +5995,7 @@ def main() -> int:
              **radix_time),
     ] + lm_kernels + [wkv_kernel]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
+    print("sharded " + json.dumps(sharded_numbers))
     print("dryrun " + json.dumps(dryrun_numbers))
     print("host_cost " + json.dumps(host_numbers))
     print("mla " + json.dumps(mla_numbers))

@@ -20,6 +20,8 @@ grid (``devices``, from ``launch.mesh``). ``PartitionSpec`` is a tuple,
 one entry a dimension: None, a mesh axis name or a tuple of names.
 ``named`` and ``tree_shardings`` return ``NamedSharding`` (mesh, spec)
 pairs, the reference's ``jax.sharding.NamedSharding`` as plain data.
+``placements`` turns a spec into DTensor placements, one a mesh axis: the
+form in which the sharded step applies it.
 """
 from __future__ import annotations
 
@@ -210,6 +212,31 @@ def policy_state_spec(policy: PlacementPolicy, base_spec: PartitionSpec,
 
 def named(mesh: MeshSpec, spec: PartitionSpec) -> NamedSharding:
     return NamedSharding(mesh, spec)
+
+
+def placements(spec: PartitionSpec, mesh: MeshSpec) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``, one a mesh axis in
+    mesh order: ``Shard(dim)`` on every axis of more than one rank that
+    ``spec`` names for ``dim``, ``Replicate()`` on the others (a split in
+    one is the whole tensor, and DTensor's view rules refuse to merge or
+    drop a dim that is split, however many ways). A dim over several
+    axes, such as ("pod", "data"), is split by each in turn, the first the
+    major one, which is the reference's layout when the axes come in mesh
+    order (the only order a plan names them in; another raises)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: list = [Replicate() for _ in mesh.axis_names]
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        names = axis if isinstance(axis, tuple) else (axis,)
+        where = [mesh.axis_names.index(a) for a in names]
+        if where != sorted(where):
+            raise ValueError(f"{spec}: axes {names} of dim {dim} are not in "
+                             f"the mesh's order {mesh.axis_names}")
+        for i in where:
+            if mesh.axis_sizes[i] > 1:
+                out[i] = Shard(dim)
+    return out
 
 
 # ---------------------------------------------------------------------------

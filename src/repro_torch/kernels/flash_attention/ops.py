@@ -16,6 +16,11 @@ implementation and its FLOP formula, ``flops``, and neither builds nor
 launches. The kernel computes in float32: on its route ``_Attention``
 hands it float32 copies of inputs of other dtypes (bfloat16 parameters),
 and recomputes the backward from the same copies.
+
+On DTensors (the sharded step) the attention runs on each rank's block
+(``common.on_shards``) by ``RULE``: split over batch, or over q heads and
+kv heads along the same mesh axis (``PaddedDims.for_tp`` keeps whole q:kv
+groups on a block); sequence and head dim whole.
 """
 from __future__ import annotations
 
@@ -28,8 +33,10 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (check_input, count_launch,
-                                        kernel_mode, stream_handle)
+from repro_torch.kernels.common import (ShardRule, check_input,
+                                        count_launch, is_sharded,
+                                        kernel_mode, on_shards,
+                                        stream_handle)
 from repro_torch.kernels.flash_attention.ref import (
     attention_chunked, attention_chunked_bwd, attention_chunked_with_lse)
 
@@ -116,6 +123,12 @@ def _fwd_flops(q_shape, k_shape, v_shape, causal, window, q_offset, scale,
                  q_offset)
 
 
+# q, k, v -> out, each (B, S, H, D)
+RULE = ShardRule("flash_attention",
+                 {"batch": (0, 0, 0), "heads": (2, 2, 2)},
+                 {"batch": (0,), "heads": (2,)})
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: Optional[int], q_offset: int,
             scale: float) -> torch.Tensor:
@@ -182,4 +195,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if is_sharded(q, k, v):
+        return on_shards(_Attention.apply, RULE, (q, k, v),
+                         (causal, window, q_offset, scale, mode))
     return _Attention.apply(q, k, v, causal, window, q_offset, scale, mode)

@@ -12,7 +12,9 @@ so it goes through the same dispatch: the CUDA kernel on the card.
 The launch is the operator ``torch.ops.repro_torch.rglru_scan_fwd``
 (``kernels.common``): a trace on fake tensors reaches its fake
 implementation and its FLOP formula, ``flops``, and neither builds nor
-launches.
+launches. On DTensors (the sharded step) the scan runs on each rank's
+block (``common.on_shards``) by ``RULE``: split over batch or width, the
+time axis whole.
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (check_input, count_launch,
-                                        kernel_mode, stream_handle)
+from repro_torch.kernels.common import (ShardRule, check_input,
+                                        count_launch, is_sharded,
+                                        kernel_mode, on_shards,
+                                        stream_handle)
 from repro_torch.kernels.rglru_scan.ref import linear_scan_sequential
 
 CHUNK = 32           # steps a warp's run covers before a carry enters
@@ -88,6 +92,11 @@ def _fwd_flops(a_shape, b_shape, words_shape, chunk, out_shape=None,
     return flops(a_shape)
 
 
+# a, b -> h, each (B, S, D)
+RULE = ShardRule("rglru_scan", {"batch": (0, 0), "width": (2, 2)},
+                 {"batch": (0,), "width": (2,)})
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, *,
             chunk: int = CHUNK) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous float32 a, b (B, S, D) on one
@@ -144,4 +153,6 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
                 mode: Optional[str] = None) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t along axis 1, h_{-1} = 0. a, b:
     (B, S, D) -> float32 h."""
+    if is_sharded(a, b):
+        return on_shards(_LinearScan.apply, RULE, (a, b), (mode,))
     return _LinearScan.apply(a, b, mode)

@@ -12,7 +12,9 @@ here: ``wkv6_step`` is the plain op on every device.
 The launch is the operator ``torch.ops.repro_torch.wkv6_fwd``
 (``kernels.common``): a trace on fake tensors reaches its fake
 implementation and its FLOP formula, ``flops``, and neither builds nor
-launches.
+launches. On DTensors (the sharded step) the scan runs on each rank's
+block (``common.on_shards``) by ``RULE``: split over batch, or over heads
+with ``u``'s heads beside them; time and the head size whole.
 """
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (check_input, count_launch,
-                                        kernel_mode, stream_handle)
+from repro_torch.kernels.common import (ShardRule, check_input,
+                                        count_launch, is_sharded,
+                                        kernel_mode, on_shards,
+                                        stream_handle)
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref, wkv6_step_ref
 
 HEAD_SIZES = (16, 32, 64)         # the kernel's instantiations
@@ -91,6 +95,12 @@ def _fwd_flops(r_shape, *args, out_shape=None, **kwargs) -> int:
     return flops(r_shape)
 
 
+# r, k, v, w (B, S, H, N) and u (H, N) -> y (B, S, H, N), state (B, H, N, N)
+RULE = ShardRule("wkv6",
+                 {"batch": (0, 0, 0, 0, None), "heads": (2, 2, 2, 2, 0)},
+                 {"batch": (0, 0), "heads": (2, 1)})
+
+
 def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             w: torch.Tensor, u: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,4 +162,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6 scan from a zero state. r, k, v, w: (B, S, H, N); u: (H, N).
     Returns (y (B, S, H, N) float32, the final state (B, H, N, N))."""
+    if is_sharded(r, k, v, w, u):
+        return on_shards(_WKV6.apply, RULE, (r, k, v, w, u), (mode,))
     return _WKV6.apply(r, k, v, w, u, mode)

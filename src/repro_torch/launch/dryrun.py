@@ -27,11 +27,18 @@ not); ``build_cell`` gives the model that device and the kernels' route
 (``kernel_mode="cuda"``), and the kernels' checks take a fake tensor for
 the card's.
 
-On the pod meshes (16 x 16, 2 x 16 x 16) the trace is of the whole step on
-one device: FLOPs and bytes are the step's, spread evenly over the chips
-in the roofline; the per-device temporaries and the collective bytes need
-the sharded step (ROADMAP item 16) and stay null. On the one-card mesh
-the trace's peak is the device's.
+On the pod meshes (16 x 16, 2 x 16 x 16) FLOPs and bytes come from the
+trace of the whole step on one device, spread evenly over the chips in
+the roofline. The per-device temporaries and the collective bytes come
+from a second trace (``trace_cell(..., sharded=True)``): rank 0 of the
+sharded step, under a fake process group of the mesh's world size
+(``fake_group``), its arguments fake DTensors of the plan's shard shapes
+(``fake_sharded``), the live bytes counted on rank 0's local storages
+and every ``_c10d_functional`` collective recorded (kind, result bytes,
+group size) and priced by the reference's per-kind arithmetic
+(``collective_cost``). The MoE families' sharded dispatch is not ported
+(ROADMAP item 16b): their pod-mesh fields stay null. On the one-card mesh
+the first trace's peak is the device's.
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch recurrentgemma-2b --shape train_4k
@@ -65,8 +72,9 @@ from repro_torch.core.config import (LM_SHAPES, ArchConfig, PlacementPolicy,
                                      StepKind, TrainConfig)
 from repro_torch.core.params import abstract_params
 from repro_torch.core.partitioning import MeshSpec, axis_size
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import device_mesh, make_production_mesh
 from repro_torch.launch.sharding_plan import (batch_specs, cache_shardings,
+                                              data_axes_for,
                                               opt_state_shardings,
                                               param_shardings)
 from repro_torch.models.lm import LMModel
@@ -81,7 +89,23 @@ H100_SXM = dict(peak_flops=989e12,      # bf16 tensor cores, dense
                 device_memory=80e9)     # 80 GB
 H100_SXM_SOURCE = ("NVIDIA H100 SXM data sheet: 989 TFLOP/s bf16 dense, "
                    "3.35 TB/s, NVLink 450 GB/s each way, 80 GB")
-SHARDED_STEP = "needs the sharded step (ROADMAP item 16)"
+SHARDED_MOE = ("needs the MoE families' sharded dispatch (ROADMAP item "
+               "16b)")
+# the reference's five collective kinds, by the ``_c10d_functional``
+# operators that DTensor issues
+_COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+# operators of that namespace that move nothing
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
 # caching allocator's rounding of every block (c10's kMinBlockSize)
 ALLOC_ROUND = 512
 
@@ -251,12 +275,95 @@ def _tensors(tree: Any):
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
+def collective_cost(kind: str, result_bytes: float,
+                    g: int) -> Tuple[float, float]:
+    """(operand bytes, wire bytes) on one device of one collective whose
+    result on that device has ``result_bytes``, over a group of ``g``: the
+    reference's arithmetic (``repro.launch.dryrun.collective_bytes``)."""
+    g = max(g, 1)
+    if kind == "all-gather":
+        return result_bytes / g, result_bytes * (g - 1) / g
+    if kind == "all-reduce":
+        return result_bytes, 2.0 * result_bytes * (g - 1) / g
+    if kind == "reduce-scatter":
+        return result_bytes * g, result_bytes * (g - 1)
+    if kind == "all-to-all":
+        return result_bytes, result_bytes * (g - 1) / g
+    if kind == "collective-permute":
+        return result_bytes, result_bytes
+    raise ValueError(f"unknown collective kind {kind!r}")
+
+
+def collective_bytes(records) -> Dict[str, Any]:
+    """The reference's report of collectives from (kind, result bytes,
+    group size) records: per kind its count, operand and wire bytes, and
+    their totals."""
+    out: Dict[str, Any] = {k: {"count": 0, "operand_bytes": 0.0,
+                               "wire_bytes": 0.0} for k in COLLECTIVES}
+    for kind, result_b, g in records:
+        operand, wire = collective_cost(kind, result_b, g)
+        out[kind]["count"] += 1
+        out[kind]["operand_bytes"] += operand
+        out[kind]["wire_bytes"] += wire
+    out["operand_bytes"] = sum(out[k]["operand_bytes"] for k in COLLECTIVES)
+    out["wire_bytes"] = sum(out[k]["wire_bytes"] for k in COLLECTIVES)
+    return out
+
+
+def _group_size(func, args) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = next(a for a in reversed(args) if isinstance(a, str))
+    return _resolve_process_group(name).size()
+
+
+@contextlib.contextmanager
+def _rank_ops_only(tracker: "_Tracker") -> Iterator[None]:
+    """Around a trace of DTensors, two pieces of DTensor's own bookkeeping
+    that are not a rank's work run outside the counters: the sharding
+    propagation's run of an operator on global shapes to learn its
+    output's (once per operator and placement), and the index arithmetic
+    of a strided shard (a dim split over two axes, then flattened), which
+    builds index tensors and reads them back, so that it runs on real
+    ones under a fake mode too."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    def quiet(orig, real=False):
+        def run(*a, **k):
+            tracker.paused += 1
+            try:
+                if real:
+                    with unset_fake_temporarily():
+                        return orig(*a, **k)
+                return orig(*a, **k)
+            finally:
+                tracker.paused -= 1
+        return run
+    prop = DTensor._op_dispatcher.sharding_propagator
+    meta = next(n for n in ("_propagate_tensor_meta_non_cached",
+                            "_propagate_tensor_meta") if hasattr(prop, n))
+    strided = getattr(_StridedShard, "local_shard_size_and_offset", None)
+    setattr(prop, meta, quiet(getattr(prop, meta)))
+    if strided is not None:
+        _StridedShard.local_shard_size_and_offset = quiet(strided, real=True)
+    try:
+        yield
+    finally:
+        delattr(prop, meta)
+        if strided is not None:
+            _StridedShard.local_shard_size_and_offset = strided
+
+
 class _Tracker(TorchDispatchMode):
     """Counts, over every operator that runs, the bytes of its tensor
     inputs and outputs on ``device`` (views and metadata-only operators
     left out), and follows the live bytes of ``device``'s storages: each
     storage an operator makes is counted, rounded up as the caching
-    allocator rounds it, from its creation until it is freed."""
+    allocator rounds it, from its creation until it is freed. On DTensors
+    it sees each rank's local operators (DTensor's own dispatch hands them
+    down), so the bytes are this rank's, and it records every collective
+    as (kind, result bytes, group size)."""
 
     def __init__(self, device: torch.device):
         super().__init__()
@@ -267,13 +374,16 @@ class _Tracker(TorchDispatchMode):
         self.bytes = 0
         self.live = 0
         self.peak = 0
+        self.paused = 0
+        self.collectives: list = []
         self._seen = WeakIdKeyDictionary()
+        self._alias = WeakIdKeyDictionary()
 
     def adopt(self, tree: Any) -> None:
-        """Count the storages of ``tree``'s tensors (the step's arguments)
-        as live."""
+        """Count the storages of ``tree``'s tensors (the step's arguments;
+        a DTensor's local block) as live."""
         for t in _tensors(tree):
-            self._note(t)
+            self._note(_local(t))
 
     def _note(self, t: torch.Tensor) -> None:
         if t.device != self.device:
@@ -291,7 +401,22 @@ class _Tracker(TorchDispatchMode):
         self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, _dtensor_type()) for t in types):
+            return NotImplemented       # DTensor hands down its local ops
         out = func(*args, **(kwargs or {}))
+        if self.paused:
+            return out
+        if func.namespace == "_c10d_functional":
+            if func._opname in _NOT_COLLECTIVES:
+                self._alias_of(_tensors(args)[0], out)
+                return out
+            kind = _COLLECTIVE_KINDS.get(func._opname)
+            if kind is None:
+                raise NotImplementedError(f"no cost for collective {func}")
+            self.collectives.append(
+                (kind, sum(t.numel() * t.element_size()
+                           for t in _tensors(out)),
+                 _group_size(func, args)))
         if func.namespace != "prim" and func not in _NO_TRAFFIC and \
                 not func.is_view:
             for t in _tensors((args, kwargs)) + _tensors(out):
@@ -300,6 +425,26 @@ class _Tracker(TorchDispatchMode):
         for t in _tensors(out):
             self._note(t)
         return out
+
+    def _alias_of(self, src: torch.Tensor, out: Any) -> None:
+        """A collective's result, waited on or wrapped for autograd, is
+        one buffer whichever tensor holds it (fake and real runs make a
+        new tensor here or not): counted once, live while either holds
+        it."""
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            if st not in self._seen:
+                self._seen[st] = 0
+                self._alias[st] = src
+
+
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, _dtensor_type()) else t
 
 
 def describe(tree: Any) -> Any:
@@ -316,27 +461,39 @@ def describe(tree: Any) -> Any:
     return tree
 
 
-def trace(fn: Callable, args: Tuple, device: torch.device) -> Dict[str, Any]:
+def trace(fn: Callable, args: Tuple, device: torch.device
+          ) -> Dict[str, Any]:
     """Run ``fn(*args)`` once under the counters: FLOPs
     (``FlopCounterMode``, the kernels' operators by their formulas), the
     bytes every operator reads and writes on ``device`` (eager PyTorch
     launches a kernel an operator, so this is the eager path's
     device-memory traffic before caches), the live bytes at the start
-    (the arguments) and at their peak, and the outputs' shapes and dtypes.
-    On fake tensors nothing is allocated or launched; on real ones the
-    same counters describe a real run."""
+    (the arguments) and at their peak, the collectives, and the outputs'
+    shapes and dtypes. On fake tensors nothing is allocated or launched;
+    on real ones the same counters describe a real run. On DTensors the
+    bytes, the live bytes and the collectives are this rank's (FLOPs are
+    not counted: ``FlopCounterMode`` sees global and local shapes both)."""
     tracker = _Tracker(device)
     tracker.adopt(args)
     start = tracker.live
+    sharded = any(isinstance(t, _dtensor_type()) for t in _tensors(args))
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as flop_counter, tracker:
-        out = fn(*args)
+    if sharded:
+        with _rank_ops_only(tracker), tracker:
+            out = fn(*args)
+        flops = None
+    else:
+        with FlopCounterMode(display=False) as flop_counter, tracker:
+            out = fn(*args)
+        flops = int(flop_counter.get_total_flops())
     seconds = time.perf_counter() - t0
-    return {"flops": int(flop_counter.get_total_flops()),
+    return {"flops": flops,
             "bytes": int(tracker.bytes),
             "argument_bytes": int(start),
             "peak_bytes": int(tracker.peak),
             "step_peak_bytes": int(tracker.peak - start),
+            "collectives": collective_bytes(tracker.collectives),
+            "collective_records": list(tracker.collectives),
             "outputs": describe(out),
             "seconds": seconds}
 
@@ -364,36 +521,109 @@ def model_tp(mesh: MeshSpec, cfg: RunConfig) -> int:
     return mesh.shape["model"]
 
 
+@contextlib.contextmanager
+def fake_group(world_size: int) -> Iterator[None]:
+    """A fake process group (``torch.distributed``'s "fake" backend) in
+    which this process is rank 0 of ``world_size``: collectives return at
+    once, so one process traces rank 0 of a mesh of any size. Raises if a
+    group is already initialized."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def fake_sharded(tree: Any, shardings: Any, dmesh,
+                 device: torch.device) -> Any:
+    """Fake DTensors on ``dmesh`` with the shapes and dtypes of ``tree``'s
+    ``meta`` tensors or (shape, dtype) leaves, each rank's block of the
+    plan's shard shape (``shard_shape``) made on its own, so that a local
+    storage holds that block alone (call inside ``fake_card``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.partitioning import placements
+    from repro_torch.launch.sharding_plan import _tree_map
+
+    def place(leaf, s):
+        shape, dtype = ((tuple(leaf.shape), leaf.dtype)
+                        if isinstance(leaf, torch.Tensor) else leaf)
+        local = torch.empty(shard_shape(shape, s.spec, s.mesh), dtype=dtype,
+                            device=device)
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local, dmesh, placements(s.spec, s.mesh),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=stride)
+    return _tree_map(place, tree, shardings)
+
+
+def is_sharded_cell(arch: ArchConfig) -> bool:
+    """True where the sharded step is ported: every family but the MoE
+    ones (their dispatch is ROADMAP item 16b)."""
+    return arch.moe is None
+
+
 def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
-               cfg: RunConfig, kernel_mode: Optional[str] = None):
+               cfg: RunConfig, kernel_mode: Optional[str] = None,
+               dmesh=None):
     """(model, step function, its arguments as fake tensors on the card's
     stand-in). Call inside ``fake_card``. The model runs the kernels'
     route on the stand-in; ``kernel_mode="ref"`` traces the plain versions
-    in place of the kernels' operators."""
+    in place of the kernels' operators. With ``dmesh`` (the
+    ``DeviceMesh`` of ``mesh`` over a ``fake_group``) the arguments are
+    fake DTensors placed by the plan and the step is the sharded one."""
     dev = card_stand_in()
+    data_axes = data_axes_for(mesh) + (
+        ("model",) if cfg.sharding.strategy == "fsdp" else ())
     model = LMModel(arch, tp=model_tp(mesh, cfg), remat=cfg.train.remat,
+                    sequence_parallel=cfg.sharding.sequence_parallel,
+                    data_axes=data_axes,
                     kernel_mode=kernel_mode or "cuda", device=dev)
-    params = fake_like(abstract_params(model.schema(),
-                                        getattr(torch, cfg.param_dtype)), dev)
+    if dmesh is None:
+        def make(tree, _shardings):
+            return fake_like(tree, dev)
+    else:
+        def make(tree, shardings):
+            return fake_sharded(tree, shardings, dmesh, dev)
+    params_abs = abstract_params(model.schema(),
+                                 getattr(torch, cfg.param_dtype))
+    params = make(params_abs, dmesh and param_shardings(model, cfg, mesh))
     binfo = batch_specs(arch, shape, mesh, cfg.sharding.strategy)
-    data = fake_like(binfo["specs"], dev)
+    data = make(binfo["specs"], binfo["shardings"])
     if shape.kind == StepKind.TRAIN:
-        opt = fake_like(adamw.abstract_state(params, cfg.train), dev)
+        opt_abs = adamw.abstract_state(params_abs, cfg.train)
+        opt = make(opt_abs, dmesh and opt_state_shardings(
+            model, cfg, mesh, params_abs, opt_abs))
         return model, make_train_step(model, cfg), (params, opt, data, 0)
     if shape.kind == StepKind.PREFILL:
         return model, model.prefill, (params, data)
-    cache = fake_like(model.cache_spec(shape.global_batch, shape.seq_len),
-                       dev)
+    B, cap = shape.global_batch, shape.seq_len
+    cache = make(model.cache_spec(B, cap),
+                 dmesh and cache_shardings(model, cfg, mesh, B, cap))
     return model, model.decode_step, (params, cache, data)
 
 
 def trace_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
-               cfg: RunConfig, kernel_mode: Optional[str] = None
-               ) -> Dict[str, Any]:
+               cfg: RunConfig, kernel_mode: Optional[str] = None,
+               sharded: bool = False, dmesh=None) -> Dict[str, Any]:
     """The counterpart of the reference's ``_cell_costs``: one pass of the
-    cell's step on fake tensors (``trace``), and the device it stood on."""
+    cell's step on fake tensors (``trace``), and the device it stood on.
+    ``sharded`` traces rank 0 of the sharded step on ``mesh`` instead of
+    the whole step on one device, under a ``fake_group`` of its own, or
+    on ``dmesh`` (the ``DeviceMesh`` of ``mesh`` over a fake group that
+    the caller holds)."""
+    if sharded and dmesh is None:
+        with fake_group(n_chips(mesh)):
+            return trace_cell(arch, shape, mesh, cfg, kernel_mode, True,
+                              device_mesh(mesh, card_stand_in().type))
     with fake_card() as dev:
-        _, fn, args = build_cell(arch, shape, mesh, cfg, kernel_mode)
+        _, fn, args = build_cell(arch, shape, mesh, cfg, kernel_mode,
+                                 dmesh=dmesh if sharded else None)
         out = trace(fn, args, dev)
     out["trace_device"] = str(dev)
     return out
@@ -407,6 +637,7 @@ def trace_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
 # shallow traces), shallow traces extrapolated linearly in depth.
 # ---------------------------------------------------------------------------
 _COST_KEYS = ("flops", "bytes", "step_peak_bytes")
+_SHARDED_KEYS = ("bytes", "step_peak_bytes")
 
 
 def needs_calibration(arch: ArchConfig, shape: ShapeConfig) -> bool:
@@ -415,8 +646,16 @@ def needs_calibration(arch: ArchConfig, shape: ShapeConfig) -> bool:
     return arch.family == "ssm" and shape.kind == StepKind.TRAIN
 
 
+def _extrapolate(c1: Any, c2: Any, n: int) -> Any:
+    """c1 + (c2 - c1) (n - 1) over numbers and dicts of them."""
+    if isinstance(c1, dict):
+        return {k: _extrapolate(c1[k], c2[k], n) for k in c1}
+    return c1 + (c2 - c1) * (n - 1)
+
+
 def calibrate_costs(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
-                    cfg: RunConfig) -> Dict[str, Any]:
+                    cfg: RunConfig, sharded: bool = False
+                    ) -> Dict[str, Any]:
     """Full-depth FLOPs, bytes and step peak of a stack of identical
     layers, extrapolated from traces at 1 and 2 layers. Eager costs are
     linear in the depth of such a stack (one stacked leaf a parameter,
@@ -426,15 +665,25 @@ def calibrate_costs(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
     only cells ``run_cell`` extrapolates are train steps) and over by at
     most two of the allocator's blocks for a prefill. The reference's
     hybrid and MoE structures are not ported: those stacks trace at full
-    depth."""
+    depth. ``sharded`` extrapolates rank 0's sharded trace the same way,
+    its collectives (every layer issues the same) with it."""
     if arch.family == "hybrid" or (arch.moe is not None
                                    and arch.moe.n_dense_layers):
         raise ValueError(f"{arch.name}: calibrate_costs extrapolates a "
                          "stack of identical layers")
     c1, c2 = (trace_cell(dataclasses.replace(arch, n_layers=n), shape, mesh,
-                         cfg) for n in (1, 2))
-    return {k: c1[k] + (c2[k] - c1[k]) * (arch.n_layers - 1)
-            for k in _COST_KEYS}
+                         cfg, sharded=sharded) for n in (1, 2))
+    keys = _SHARDED_KEYS + ("collectives",) if sharded else _COST_KEYS
+    return {k: _extrapolate(c1[k], c2[k], arch.n_layers) for k in keys}
+
+
+def cell_costs(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
+               cfg: RunConfig, sharded: bool = False) -> Dict[str, Any]:
+    """The traced costs ``run_cell`` reports: ``trace_cell``'s at full
+    depth, or ``calibrate_costs``' where a cell needs calibration."""
+    if needs_calibration(arch, shape):
+        return calibrate_costs(arch, shape, mesh, cfg, sharded=sharded)
+    return trace_cell(arch, shape, mesh, cfg, sharded=sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -503,22 +752,25 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
 
     # ---- the trace ----------------------------------------------------------
     t0 = time.perf_counter()
+    cost = cell_costs(arch, shape, mesh, cfg)
     if needs_calibration(arch, shape):
-        cost = calibrate_costs(arch, shape, mesh, cfg)
         report["depth"] = "extrapolated from traces at 1 and 2 layers"
         report["outputs"] = None
     else:
-        cost = trace_cell(arch, shape, mesh, cfg)
         report["depth"] = "full"
         report["outputs"] = cost["outputs"]
         report["trace_device"] = cost["trace_device"]
+    # ---- rank 0 of the sharded step on a pod mesh ---------------------------
+    shard = None
+    if chips > 1 and is_sharded_cell(arch):
+        shard = cell_costs(arch, shape, mesh, cfg, sharded=True)
     report["trace_s"] = round(time.perf_counter() - t0, 1)
     report["status"] = "ok"
 
-    # ---- memory (proves it fits on the one-card mesh) -----------------------
+    # ---- memory (proves it fits) ------------------------------------------
     report["argument_bytes_per_device"] = args_b
-    if chips == 1:
-        temp_b = cost["step_peak_bytes"]
+    if chips == 1 or shard is not None:
+        temp_b = (cost if shard is None else shard)["step_peak_bytes"]
         per_device = args_b["total"] + temp_b
         report["temp_bytes_per_device"] = temp_b
         report["bytes_per_device"] = per_device
@@ -527,7 +779,7 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
         report["temp_bytes_per_device"] = None
         report["bytes_per_device"] = None
         report["fits"] = None
-        report["temp_bytes_note"] = SHARDED_STEP
+        report["temp_bytes_note"] = SHARDED_MOE
         report["arguments_fit"] = bool(args_b["total"] < device_memory)
     report["device_memory"] = device_memory
 
@@ -540,11 +792,17 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
         coll = 0.0
         report["collective_operand_bytes_per_device"] = 0.0
         report["collective_wire_bytes_per_device"] = 0.0
+    elif shard is not None:
+        coll = shard["collectives"]["wire_bytes"]
+        report["collectives"] = shard["collectives"]
+        report["collective_operand_bytes_per_device"] = \
+            shard["collectives"]["operand_bytes"]
+        report["collective_wire_bytes_per_device"] = coll
     else:
         coll = None
         report["collective_operand_bytes_per_device"] = None
         report["collective_wire_bytes_per_device"] = None
-        report["collectives_note"] = SHARDED_STEP
+        report["collectives_note"] = SHARDED_MOE
 
     # ---- roofline terms -------------------------------------------------------
     compute_s = report["flops"] / (chips * peak_flops)

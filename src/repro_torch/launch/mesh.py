@@ -9,7 +9,9 @@ permutes the ranks per the thread-placement analogue
 (``core.meshes.layout_device_order``) and, as the reference, raises when
 the host has fewer devices than the topology; ``make_host_mesh`` spans
 the devices there are: the ranks of the ``torch.distributed`` group when
-one is initialized, else the CUDA devices.
+one is initialized, else the CUDA devices. ``device_mesh`` binds a
+``MeshSpec`` to the initialized group as a ``torch.distributed``
+``DeviceMesh`` of the same rank grid and axis names.
 """
 from __future__ import annotations
 
@@ -59,6 +61,21 @@ def make_layout_mesh(*, multi_pod: bool = False,
     if multi_pod:
         return MeshSpec(("pod", "data", "model"), order.shape, order)
     return MeshSpec(("data", "model"), order.shape[1:], order[0])
+
+
+def device_mesh(spec: MeshSpec, device_type: str):
+    """The ``DeviceMesh`` of ``spec``'s rank grid (a permuted layout's
+    order included) and axis names over the initialized process group,
+    whose world size must be the mesh's."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if spec.devices is None:
+        raise ValueError(f"{spec} has no rank grid")
+    n = int(np.prod(spec.axis_sizes))
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {spec.axis_sizes} mesh over a group of "
+                         f"{dist.get_world_size()} ranks")
+    return DeviceMesh(device_type, torch.as_tensor(np.asarray(spec.devices)),
+                      mesh_dim_names=spec.axis_names)
 
 
 def make_host_mesh(n_data: Optional[int] = None,

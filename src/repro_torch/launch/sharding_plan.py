@@ -13,10 +13,14 @@ every placement:
 Meshes are ``core.partitioning.MeshSpec``; specs are its
 ``PartitionSpec``; shardings its ``NamedSharding`` (mesh, spec) pairs;
 ``batch_specs`` gives ``meta`` tensors where the reference gives
-``ShapeDtypeStruct``. The plan is data: no step of the port places a
-tensor by it yet. A step over several cards would apply it, each named
-axis of a spec a shard of that dimension over a ``torch.distributed``
-device mesh, each None a replica.
+``ShapeDtypeStruct``.
+
+The sharded step applies the plan through DTensor, PyTorch's counterpart
+of a ``NamedSharding``: ``distribute`` turns a tree of tensors (params,
+opt state, batch, cache) into DTensors on a ``DeviceMesh`` of the same
+axes (``launch.mesh.device_mesh``), each spec's named axes a ``Shard`` of
+its dim and each None a ``Replicate`` (``core.partitioning.placements``);
+``gather`` is its inverse, each leaf's whole tensor.
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ from repro_torch.core.config import (ArchConfig, RunConfig, ShapeConfig,
 from repro_torch.core.params import axes_tree, shapes_tree
 from repro_torch.core.partitioning import (MeshSpec, NamedSharding, P,
                                            PartitionSpec, map_axes, named,
-                                           policy_state_spec, rules_with,
-                                           spec_for, tree_specs,
+                                           placements, policy_state_spec,
+                                           rules_with, spec_for, tree_specs,
                                            validate_spec)
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import adamw
@@ -162,3 +166,49 @@ def cache_shardings(model: LMModel, cfg: RunConfig, mesh: MeshSpec,
     return map_axes(lambda ax, s: named(mesh, validate_spec(
         s[0], spec_for(ax, rules, mesh), mesh)), model.cache_axes(),
         model.cache_spec(batch, cap))
+
+
+def _tree_map(fn, tree: Any, shardings: Any) -> Any:
+    """fn(leaf, its NamedSharding) over a tree of dicts and NamedTuples
+    (``AdamWState``, whose absent master stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v, s)
+                            for v, s in zip(tree, shardings)))
+    return fn(tree, shardings)
+
+
+def distribute(tree: Any, shardings: Any, dmesh) -> Any:
+    """``tree``'s tensors as DTensors on ``dmesh`` (the ``DeviceMesh`` of
+    the shardings' mesh), each placed by its ``NamedSharding``. Every rank
+    holds the whole tensors and keeps its own block, with no collective; a
+    block smaller than its tensor is a copy of its own (no view keeps the
+    whole alive), one that is the whole tensor (every named axis of size
+    1) is the tensor itself."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def place(t: torch.Tensor, s: NamedSharding):
+        pl = placements(s.spec, s.mesh)
+        d = distribute_tensor(t, dmesh, pl, src_data_rank=None)
+        if d.to_local().numel() == t.numel():
+            return d
+        return DTensor.from_local(d.to_local().clone(), dmesh, pl,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+    return _tree_map(place, tree, shardings)
+
+
+def gather(tree: Any) -> Any:
+    """``tree`` with each DTensor as its whole tensor."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(t):
+        if isinstance(t, dict):
+            return {k: whole(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(whole(v) for v in t))
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    return whole(tree)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ArchConfig, PaddedDims, RopeKind
 from repro_torch.core.params import pdef
+from repro_torch.kernels.common import ShardRule, is_sharded, on_shards
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import decode_attention_ref
 from repro_torch.models.layers import (apply_mrope, apply_rope,
@@ -109,6 +110,35 @@ CACHE_AXES_GQA = {
 }
 
 
+def _write_and_attend(q, k, v, cache_k, cache_v, cache_len, ring, window,
+                      scale):
+    """The new entry written into the buffers in place at lane 0's slot
+    (``gqa_decode``), then one-token attention over them: (out, cache_k,
+    cache_v)."""
+    buf = cache_k.shape[1]
+    idx = cache_len[:1].long()
+    idx = idx % buf if ring else idx.clamp(max=buf - 1)
+    cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
+    if ring:
+        valid = torch.clamp(cache_len + 1, max=buf)
+        out = decode_attention_ref(q, cache_k, cache_v, valid, window=None,
+                                   scale=scale)
+    else:
+        out = decode_attention_ref(q, cache_k, cache_v, cache_len + 1,
+                                   window=window, scale=scale)
+    return out, cache_k, cache_v
+
+
+# q, k, v (B, 1, H, D), the k and v buffers (B, Smax, KV, D), the lengths
+# (B,) -> out, the two buffers: a rank's lanes and kv heads with their q
+# heads (the cache's plan: batch over data, kv heads over model)
+DECODE_RULE = ShardRule("decode_attention",
+                        {"batch": (0, 0, 0, 0, 0, 0),
+                         "heads": (2, 2, 2, 2, 2, None)},
+                        {"batch": (0, 0, 0), "heads": (2, 2, 2)})
+
+
 def gqa_decode(p: Dict[str, Any], x: torch.Tensor,
                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
                arch: ArchConfig, *, window: Optional[int] = None,
@@ -127,19 +157,15 @@ def gqa_decode(p: Dict[str, Any], x: torch.Tensor,
     if arch.rope == RopeKind.MROPE:                # the 3 streams share it
         pos = pos[..., None].expand(pos.shape + (3,))
     q, k = _positions_rope(arch, q, k, pos, pos)
-    buf = cache["k"].shape[1]
-    idx = cache_len[:1].long()
-    idx = idx % buf if ring else idx.clamp(max=buf - 1)
-    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
     scale = arch.resolved_head_dim ** -0.5
-    if ring:
-        valid = torch.clamp(cache_len + 1, max=buf)
-        out = decode_attention_ref(q, cache["k"], cache["v"], valid,
-                                   window=None, scale=scale)
+    args = (q, k, v, cache["k"], cache["v"], cache_len)
+    if is_sharded(*args):
+        # the rule's placements are the cache plan's, so each rank writes
+        # into its own block of the buffers, in place as below
+        out, _, _ = on_shards(_write_and_attend, DECODE_RULE, args,
+                              (ring, window, scale))
     else:
-        out = decode_attention_ref(q, cache["k"], cache["v"], cache_len + 1,
-                                   window=window, scale=scale)
+        out, _, _ = _write_and_attend(*args, ring, window, scale)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache
 

@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.common import is_sharded
+
 NEG_INF = -1e9  # the reference's additive-mask value for padded vocab
 
 
@@ -50,6 +52,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """Gated FFN used by every assigned dense architecture."""
     f = activation(act)
     return (f(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def shift_right(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (B, S, ...) behind ``n`` zero steps along dim 1: F.pad's
+    bits, by a concatenation with zeros, since not every PyTorch's DTensor
+    has a sound rule for the pad."""
+    zeros = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    return torch.cat([zeros, x], dim=1)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -96,6 +106,67 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return _rotate(x, pos * inv_freq)
 
 
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim in ATen's operations and
+    order (the max, its infinities zeroed, the sum of exp(x - max), log,
+    plus the max; the backward grad * exp(x - lse)), so its bits. On a
+    DTensor split along that dim each rank reduces its block and the max
+    and the sum reduce across ranks, where DTensor's own logsumexp gathers
+    the whole dim first."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(-1, keepdim=True)
+        m = torch.where(m.abs() == float("inf"), 0.0, m)
+        out = (x - m).exp().sum(-1).log() + m.squeeze(-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g.unsqueeze(-1) * (x - out.unsqueeze(-1)).exp()
+
+
+def _split_pick(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's label column of a DTensor ``logits`` split along its
+    last dim, on each rank's block: the entries whose vocab index (a rank's
+    block of ``_vocab_index``) is the label, summed over the block, the
+    rest zero, so the gather's bits; partial sums over the axes that split
+    the vocab. Computed locally (``local_map``): DTensor's own rule for the
+    mask may gather the whole vocab on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    last = logits.ndim - 1
+    vocab = [p.is_shard(last) for p in logits.placements]
+    rows = [p if p.is_shard() and not v else Replicate()
+            for p, v in zip(logits.placements, vocab)]
+    col_pl = [Shard(0) if v else Replicate() for v in vocab]
+    out_pl = [Partial() if v else p for p, v in zip(rows, vocab)]
+
+    def pick(x, col, ids):
+        return torch.where(col == ids.unsqueeze(-1), x, 0.0).sum(-1)
+    return local_map(pick, out_placements=out_pl,
+                     in_placements=(list(logits.placements), col_pl, rows),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(
+        logits, _vocab_index(logits), labels.long())
+
+
+def _vocab_index(logits: torch.Tensor) -> torch.Tensor:
+    """The column indices of ``logits``' last dim; on a DTensor split as
+    that dim is, so that a mask built from them stays split."""
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    if not is_sharded(logits):
+        return col
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    last = logits.ndim - 1
+    return distribute_tensor(
+        col, logits.device_mesh,
+        [Shard(0) if p.is_shard(last) else Replicate()
+         for p in logits.placements], src_data_rank=None)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int, z_loss: float = 0.0,
                   mask: Optional[torch.Tensor] = None
@@ -106,15 +177,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     Padded vocab columns are masked before the float32 logsumexp. The
     label's logit is a gather where the reference contracts a one-hot:
     the same value, without another (..., V) float32 buffer (4.2 GB at
-    4096 tokens of a 256,000 vocab). Returns (mean loss, mean z-term).
+    4096 tokens of a 256,000 vocab). The logsumexp is ``_LogSumExp``. On
+    DTensors (the sharded step, the vocab split over ranks) the label's
+    logit is ``_split_pick``, its column picked by a mask and summed over
+    the vocab, which gives the gather's bits (every other term is zero);
+    both reduce across ranks without gathering the vocab.
+    Returns (mean loss, mean z-term).
     """
     vpad = logits.shape[-1]
     logits = logits.float()
     if vpad != vocab_size:
-        col = torch.arange(vpad, device=logits.device)
+        col = _vocab_index(logits)
         logits = torch.where(col < vocab_size, logits, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    lse = _LogSumExp.apply(logits)
+    if is_sharded(logits):
+        label_logit = _split_pick(logits, labels)
+    else:
+        label_logit = logits.gather(-1,
+                                    labels.long().unsqueeze(-1)).squeeze(-1)
     nll = lse - label_logit
     z = lse.square()
     if mask is not None:

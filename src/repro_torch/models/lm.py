@@ -38,12 +38,20 @@ sequence-parallel ``shard_map`` dispatch: its tokens split into n
 sequence blocks, shard i takes block i and a view of experts
 [i E/n, (i + 1) E/n), ``moe.moe_forward_sharded`` runs on the mesh, the
 blocks are put back together and the shared experts are added outside.
-Decode keeps the one-device dispatch, as the reference's. The
-reference's ``sequence_parallel``, ``data_axes`` and ``expert_axes``
-name the mesh axes of its sharding constraints and of that
-``shard_map``; the virtual mesh has one axis and one device places no
-constraint, so the port has no such arguments: ``moe_mesh`` alone
-selects the sharded dispatch.
+Decode keeps the one-device dispatch, as the reference's.
+
+On DTensor parameters (the sharded step, ``launch.sharding_plan.
+distribute``) the same code runs sharded: ``sequence_parallel`` and
+``data_axes`` are the reference's, and its sharding constraints become
+redistributions of the residual stream to the same placements, the
+sequence-parallel ``sp_spec`` P(dp, "model", None) around every block and
+``act_spec`` P(dp, None, None) after the embedding; on plain tensors they
+do nothing. Where the reference leaves GSPMD to gather the split stream
+for a block's products, the port gathers each normed stream to
+``act_spec`` itself (``mix_spec``). The entry points run under DTensor's
+implicit replication, so that the positions, masks and scalars each rank
+makes stand for replicated tensors. The MoE layers' sharded dispatch is
+not on this route: ``moe_mesh`` is the virtual mesh's.
 """
 from __future__ import annotations
 
@@ -55,6 +63,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.config import (ArchConfig, AttentionKind, PaddedDims,
                                      RopeKind, pad_to, resolve_device)
 from repro_torch.core.params import ParamDef, init_params, pdef
+from repro_torch.core.partitioning import MeshSpec, P, placements
+from repro_torch.kernels.common import is_sharded, replicating
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -115,6 +125,44 @@ def _mlp_schema(arch: ArchConfig, padded: PaddedDims,
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table``'s rows at ``ids``. A table split over its rows (the
+    vocab over "model") goes through ``F.embedding``, whose DTensor rule
+    looks up each rank's rows and sums the partial results (at once: an
+    operator after it may not take them partial), where an index would
+    gather the whole table on every rank; so do split ids (the batch over
+    "data"), since PyTorch 2.11's DTensor rule for the index's backward
+    fails on them. Otherwise an index, as on plain tensors."""
+    from torch.distributed.tensor import Replicate
+    if is_sharded(table) and any(p.is_shard() for t in (table, ids)
+                                 if is_sharded(t) for p in t.placements):
+        out = torch.nn.functional.embedding(ids.long(), table)
+        return out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return table[ids.long()]
+
+
+def _constrain(x: torch.Tensor, spec: Optional[P]) -> torch.Tensor:
+    """The reference's sharding constraint: a DTensor redistributed to
+    ``spec``'s placements on its own mesh (axes the mesh lacks left out);
+    anything else as it is."""
+    if spec is None or not is_sharded(x):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    mspec = MeshSpec(names, tuple(mesh.shape))
+
+    def present(axis):
+        if isinstance(axis, tuple):
+            kept = tuple(a for a in axis if a in names)
+            return kept if len(kept) > 1 else (kept[0] if kept else None)
+        return axis if axis in names else None
+    want = placements(P(*(present(a) for a in spec)), mspec)
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
 class LMModel:
     """Schema + apply functions over a parameter tree; no owned state.
 
@@ -125,6 +173,8 @@ class LMModel:
     each stacked layer (super-block) in the backward."""
 
     def __init__(self, arch: ArchConfig, tp: int = 1, *,
+                 sequence_parallel: bool = False,
+                 data_axes: Tuple[str, ...] = ("data",),
                  kernel_mode: Optional[str] = None,
                  remat: str = "block",
                  moe_mesh=None,
@@ -143,6 +193,17 @@ class LMModel:
         self.kernel_mode = kernel_mode
         self.cache_dtype = cache_dtype
         self.device = resolve_device(device)
+        dp = (data_axes if len(data_axes) > 1
+              else (data_axes[0] if data_axes else None))
+        self.sp_spec = P(dp, "model", None) if sequence_parallel else None
+        self.act_spec = P(dp, None, None)
+        # under sequence parallelism the normed stream is gathered back to
+        # whole sequences before a mixer or FFN (their products, the
+        # token shifts and the scans need them), and a mixer's or FFN's
+        # partial sums are scattered to the split residual before they
+        # are added, so that their gradients come back whole: Megatron's
+        # pattern, which GSPMD derives in the reference
+        self.mix_spec = self.act_spec if sequence_parallel else None
         if arch.family == "hybrid":
             pat = arch.hybrid.pattern
             n_super = arch.n_layers // len(pat)
@@ -272,7 +333,8 @@ class LMModel:
         """(the layer's output, its aux loss: 0 but for an MoE layer)."""
         arch = self.arch
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        h = rms_norm(x, p["ln1"], arch.norm_eps)
+        x = _constrain(x, self.sp_spec)
+        h = _constrain(rms_norm(x, p["ln1"], arch.norm_eps), self.mix_spec)
         if kind == "rwkv":
             mix = rwkv_mod.time_mix_forward(p["tm"], h, arch,
                                             self.kernel_mode)
@@ -289,18 +351,20 @@ class LMModel:
             mix = attn_mod.gqa_forward(p["attn"], h, arch,
                                        positions=positions, window=window,
                                        kernel_mode=self.kernel_mode)
-        x = x + mix
-        h = rms_norm(x, p["ln2"], arch.norm_eps)
+        x = _constrain(x + _constrain(mix, self.sp_spec), self.sp_spec)
+        h = _constrain(rms_norm(x, p["ln2"], arch.norm_eps), self.mix_spec)
         if kind == "rwkv":
-            return x + rwkv_mod.channel_mix_forward(p["tm"], h), aux
-        if kind == "moe":
+            y = rwkv_mod.channel_mix_forward(p["tm"], h)
+        elif kind == "moe":
             if self.moe_mesh is not None:
                 y, aux = self._moe_sharded(p["moe"], h)
             else:
                 y, aux = moe_mod.moe_forward(p["moe"], h, arch)
-            return x + y, aux
-        return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                          p["mlp"]["w_down"], arch.act), aux
+        else:
+            y = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                       p["mlp"]["w_down"], arch.act)
+        # the block's output too: the residual that remat keeps stays split
+        return _constrain(x + _constrain(y, self.sp_spec), self.sp_spec), aux
 
     def _moe_sharded(self, p: Dict[str, Any], h: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -329,7 +393,7 @@ class LMModel:
         if arch.n_codebooks:
             # the audio stub: precomputed frame embeddings (EnCodec's)
             return batch["embeds"]
-        tok = params["embed"][batch["tokens"].long()]
+        tok = _lookup(params["embed"], batch["tokens"])
         if arch.vlm and "patch_embeds" in batch:
             tok = torch.cat([batch["patch_embeds"].to(tok.dtype), tok],
                             dim=1)
@@ -354,7 +418,8 @@ class LMModel:
             B, seq_len, 3)
 
     def _head(self, params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        x = _constrain(rms_norm(x, params["final_norm"], self.arch.norm_eps),
+                       self.mix_spec)
         if self.arch.n_codebooks:
             return torch.einsum("bsd,cdv->bscv", x, params["head_codes"])
         if self.arch.tie_embeddings:
@@ -373,7 +438,7 @@ class LMModel:
     def _hidden(self, params: Dict[str, Any], batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the last layer's output, the layers' summed aux loss)."""
-        x = self._embed(params, batch)
+        x = _constrain(self._embed(params, batch), self.act_spec)
         positions = self._positions(batch, x.shape[1], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.remat == "block" and torch.is_grad_enabled()
@@ -391,8 +456,9 @@ class LMModel:
     def forward(self, params: Dict[str, Any], batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Full-sequence pass -> (logits, hidden, aux_loss)."""
-        x, aux = self._hidden(params, batch)
-        return self._head(params, x), x, aux
+        with replicating(params):
+            x, aux = self._hidden(params, batch)
+            return self._head(params, x), x, aux
 
     def loss_fn(self, params: Dict[str, Any], batch: Dict[str, Any],
                 z_loss: float = 0.0
@@ -401,17 +467,19 @@ class LMModel:
         next-token prediction against batch["labels"]: every codebook's
         for audio, the text tail's for a vlm batch with patches. The MTP
         loss enters the total at weight 0.3, as in the reference."""
-        logits, hidden, aux = self.forward(params, batch)
-        labels = batch["labels"]
-        if self.arch.vlm and "patch_embeds" in batch:
-            logits = logits[:, -labels.shape[1]:]
-        loss, z = cross_entropy(logits, labels, self.arch.vocab_size, z_loss)
-        metrics = {"ce": loss, "aux": aux, "z": z}
-        total = loss + aux
-        if self.arch.mtp:
-            metrics["mtp"] = self._mtp_loss(params, hidden, labels)
-            total = total + 0.3 * metrics["mtp"]
-        return total, metrics
+        with replicating(params):
+            logits, hidden, aux = self.forward(params, batch)
+            labels = batch["labels"]
+            if self.arch.vlm and "patch_embeds" in batch:
+                logits = logits[:, -labels.shape[1]:]
+            loss, z = cross_entropy(logits, labels, self.arch.vocab_size,
+                                    z_loss)
+            metrics = {"ce": loss, "aux": aux, "z": z}
+            total = loss + aux
+            if self.arch.mtp:
+                metrics["mtp"] = self._mtp_loss(params, hidden, labels)
+                total = total + 0.3 * metrics["mtp"]
+            return total, metrics
 
     def _mtp_loss(self, params: Dict[str, Any], hidden: torch.Tensor,
                   labels: torch.Tensor) -> torch.Tensor:
@@ -421,7 +489,7 @@ class LMModel:
         arch = self.arch
         p = params["mtp"]
         h = rms_norm(hidden, p["norm_h"], arch.norm_eps)
-        e = rms_norm(params["embed"][labels.long()], p["norm_e"],
+        e = rms_norm(_lookup(params["embed"], labels), p["norm_e"],
                      arch.norm_eps)
         comb = torch.cat([h[:, :-1], e[:, :-1]], dim=-1) @ p["proj"]
         positions = torch.arange(comb.shape[1], device=comb.device)
@@ -435,8 +503,9 @@ class LMModel:
         """(last-token logits (B, 1, V) or (B, 1, C, V), aux):
         ``forward(...)[0][:, -1:]`` without the head's work on the other
         positions."""
-        x, aux = self._hidden(params, batch)
-        return self._head(params, x[:, -1:]), aux
+        with replicating(params):
+            x, aux = self._hidden(params, batch)
+            return self._head(params, x[:, -1:]), aux
 
     # ------------------------------------------------------------------
     # caches
@@ -554,6 +623,12 @@ class LMModel:
         codebook embeddings are summed. Returns (logits, new cache); KV
         buffers are written in place, recurrent states are new tensors,
         and "len" advances for every lane."""
+        with replicating(params):
+            return self._decode_step(params, cache, batch)
+
+    def _decode_step(self, params: Dict[str, Any], cache: Dict[str, Any],
+                     batch: Dict[str, Any]
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         cache_len = cache["len"]
         x = self._decode_embed(params, batch)
         new_cache: Dict[str, Any] = {"len": cache_len + 1}

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.core.config import ArchConfig
 from repro_torch.core.params import pdef
 from repro_torch.kernels.rglru_scan import linear_scan
-from repro_torch.models.layers import activation
+from repro_torch.models.layers import activation, shift_right
 
 _C = 8.0
 
@@ -70,7 +70,7 @@ def _causal_conv(p, x, conv_state: Optional[torch.Tensor] = None):
         out = (ctx * w[None]).sum(dim=1, keepdim=True)
         return ((out + p["conv_b"].float()).to(x.dtype),
                 ctx[:, 1:].to(x.dtype))
-    pad = F.pad(xf, (0, 0, W - 1, 0))
+    pad = shift_right(xf, W - 1)
     out = 0
     for i in range(W):                           # the reference's order
         out = out + pad[:, i:i + x.shape[1]] * w[i]

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core.config import ArchConfig, RWKVConfig
 from repro_torch.core.params import pdef
 from repro_torch.kernels.rwkv6_scan import wkv6, wkv6_step
+from repro_torch.models.layers import shift_right
 
 _MIX_KINDS = ("w", "k", "v", "r", "g")
 
@@ -105,7 +106,7 @@ def _decay(p: Dict[str, Any], xw: torch.Tensor) -> torch.Tensor:
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
     """shift(x) - x: the previous token (zero before the first) minus x."""
-    return F.pad(x[:, :-1], (0, 0, 1, 0)) - x
+    return shift_right(x[:, :-1], 1) - x
 
 
 def time_mix_forward(p: Dict[str, Any], x: torch.Tensor, arch: ArchConfig,

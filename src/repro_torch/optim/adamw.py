@@ -3,15 +3,21 @@
 The same state (``AdamWState(step, mu, nu, master)``, fields in the
 reference's order, so that checkpoints interchange) and the same
 arithmetic: global-norm clipping, bias corrections, decoupled weight decay
-on the float32 master copy, moments stored in ``moment_dtype``. The port
-runs on one device, so the placement policy that shards the state in the
-reference has nothing to place here.
+on the float32 master copy, moments stored in ``moment_dtype``.
 
 ``update`` works one leaf at a time and in place: the moments, the master
 copy and the parameters are the state's own tensors, overwritten with
 their new values (each operation in the reference's order), so that the
 peak stays a few leaf-sized temporaries above the state. The tensors of
 ``params`` and of the state passed in are the ones returned.
+
+On DTensors (the sharded step) the same update runs leaf by leaf on each
+rank's blocks: every gradient is first redistributed to its moment's
+placements (partial sums reduced; under INTERLEAVE the state is ZeRO-1,
+split over the data axes by ``core.partitioning.policy_state_spec``, so
+that is a reduce-scatter), the global norm reduces across ranks, and the
+new master weights come back to each parameter in the parameter's own
+placements (an all-gather under ZeRO-1): the reference's out_shardings.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.config import TrainConfig
+from repro_torch.kernels.common import is_sharded
 
 
 class AdamWState(NamedTuple):
@@ -40,6 +47,12 @@ def _map(fn, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _map2(fn, a: Any, b: Any) -> Any:
+    if isinstance(a, dict):
+        return {k: _map2(fn, v, b[k]) for k, v in a.items()}
+    return fn(a, b)
 
 
 def leaves(tree: Any) -> Iterator[torch.Tensor]:
@@ -79,6 +92,14 @@ def abstract_state(params_abs: Any, cfg: TrainConfig) -> AdamWState:
                       _map(like(mdtype), params_abs), master)
 
 
+def _like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``ref``'s placements when it is a DTensor placed otherwise;
+    anything else as it is."""
+    if is_sharded(x) and tuple(x.placements) != tuple(ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     total = 0
     for x in leaves(tree):
@@ -92,6 +113,8 @@ def update(grads: Any, state: AdamWState, params: Any, lr: torch.Tensor,
     the parameters and the state's tensors updated in place."""
     with torch.no_grad():
         step = state.step + 1
+        if is_sharded(next(leaves(grads))):
+            grads = _map2(_like, grads, state.mu)
         gnorm = global_norm(grads)
         clip = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
                 if cfg.grad_clip > 0 else torch.ones((), device=gnorm.device))
@@ -112,14 +135,14 @@ def update(grads: Any, state: AdamWState, params: Any, lr: torch.Tensor,
             del gf
             # mhat / (sqrt(vhat) + eps) + wd * base; base - lr * that
             stepv = (mf / c1).div_((vf / c2).sqrt_().add_(cfg.eps))
-            base = pm.float()
+            base = _like(pm.float(), m)
             stepv.add_(cfg.weight_decay * base)
             new_master = base.sub_(lr * stepv)
             del stepv
             for dst, src in ((m, mf), (v, vf), (pm, new_master),
                              (p, new_master)):
                 if dst is not src:
-                    dst.copy_(src)
+                    dst.copy_(_like(src, dst))
         metrics = {"grad_norm": gnorm, "clip": clip}
         return params, AdamWState(step, state.mu, state.nu,
                                   state.master if use_master else None), \

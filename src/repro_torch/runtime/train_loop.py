@@ -11,6 +11,13 @@ gradient is ``torch.autograd.grad`` of ``model.loss_fn`` with respect to
 detached aliases of the parameters, so the optimizer updates the
 parameters' own tensors in place.
 
+On DTensor parameters and opt state (``launch.sharding_plan.distribute``)
+the same step is the sharded one, the counterpart of the reference's jit
+with in and out shardings: the batch is placed by ``batch_specs`` on the
+parameters' mesh, the step runs under DTensor's implicit replication,
+AdamW returns the parameters in their own placements and the state in
+its own (``optim.adamw``), and the metrics come back whole.
+
 ``train`` is the driving loop: seeded data, async checkpoints, step
 timing, straggler tracking, and checkpoint/restart on (injected or real)
 failures, on the model's device.
@@ -26,6 +33,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.core.config import RunConfig
 from repro_torch.data.pipeline import synth_batch
+from repro_torch.kernels.common import is_sharded, replicating
 from repro_torch.models.lm import LMModel
 from repro_torch.optim import adamw, schedules
 from repro_torch.runtime.ft import (FailureInjector, SimulatedFailure,
@@ -73,6 +81,17 @@ def make_train_step(model: LMModel, cfg: RunConfig,
                 _build(paths, grads))
 
     def train_step(params, opt_state, batch, step):
+        leaf = _flatten(params)[0][1]
+        if is_sharded(leaf):
+            with replicating(params):
+                new_params, new_opt, metrics = run_step(
+                    params, opt_state, _place_batch(batch, leaf, cfg), step)
+            return new_params, new_opt, {
+                k: v.full_tensor() if is_sharded(v) else v
+                for k, v in metrics.items()}
+        return run_step(params, opt_state, batch, step)
+
+    def run_step(params, opt_state, batch, step):
         # a factory, not torch.tensor: on the dry run's fake tensors the
         # step stays fake, where a tensor made from data would be a real
         # one on the card that the schedule's operators then run on
@@ -83,14 +102,18 @@ def make_train_step(model: LMModel, cfg: RunConfig,
         if accum > 1:
             acc_dtype = getattr(torch, tcfg.grad_accum_dtype)
             paths, shapes = zip(*((p, v.shape) for p, v in _flatten(params)))
-            acc = [torch.zeros(shape, dtype=acc_dtype, device=model.device)
-                   for shape in shapes]
+            sharded = is_sharded(_flatten(params)[0][1])
+            acc = None if sharded else [
+                torch.zeros(shape, dtype=acc_dtype, device=model.device)
+                for shape in shapes]
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=model.device)
-            n = next(iter(batch.values())).shape[0] // accum
             for i in range(accum):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                mb = {k: _microbatch(v, i, accum) for k, v in batch.items()}
                 loss, _, grads = value_and_grad(params, mb)
+                if acc is None:     # zeros placed as the grads (partial sums)
+                    acc = [torch.zeros_like(g, dtype=acc_dtype)
+                           for _, g in _flatten(grads)]
                 for a, (_, g) in zip(acc, _flatten(grads)):
                     a.add_(g)
                 loss_sum = loss_sum + loss
@@ -106,6 +129,44 @@ def make_train_step(model: LMModel, cfg: RunConfig,
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def _microbatch(v: torch.Tensor, i: int, accum: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``accum``: rows [i n, (i + 1) n) of the batch;
+    of a DTensor, those of each rank's block (so that every microbatch
+    stays split over the data axes, as the reference's reshape to
+    (accum, B / accum) leaves it), the same rows when it is whole."""
+    if not is_sharded(v):
+        n = v.shape[0] // accum
+        return v[i * n:(i + 1) * n]
+    from torch.distributed.tensor import DTensor
+    local = v.to_local()
+    n = local.shape[0] // accum
+    shape = (v.shape[0] // accum,) + tuple(v.shape[1:])
+    return DTensor.from_local(local[i * n:(i + 1) * n], v.device_mesh,
+                              v.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def _place_batch(batch: Dict[str, torch.Tensor], leaf,
+                 cfg: RunConfig) -> Dict[str, Any]:
+    """``batch`` (every rank's whole batch, or DTensors already) as
+    DTensors on ``leaf``'s mesh, placed by ``batch_specs``."""
+    from repro_torch.core.partitioning import MeshSpec
+    from repro_torch.launch.sharding_plan import batch_specs, distribute
+    if all(is_sharded(v) for v in batch.values()):
+        return batch
+    mesh = leaf.device_mesh
+    spec = MeshSpec(mesh.mesh_dim_names, tuple(mesh.shape))
+    b, s = next(iter(batch.values())).shape[:2]
+    shape = dataclasses.replace(cfg.shape, global_batch=b, seq_len=s)
+    if cfg.arch.vlm and "patch_embeds" in batch:
+        shape = dataclasses.replace(shape, seq_len=s + cfg.arch.n_patches)
+    shardings = batch_specs(cfg.arch, shape, spec,
+                            cfg.sharding.strategy)["shardings"]
+    return distribute(batch, {k: shardings[k] for k in batch}, mesh)
 
 
 @dataclasses.dataclass

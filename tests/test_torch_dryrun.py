@@ -475,7 +475,9 @@ def test_cli_traces_a_train_cell_with_no_card_and_no_allocation(tmp_path):
     """``python -m repro_torch.launch.dryrun --arch recurrentgemma-2b
     --shape train_4k`` exits 0 on a host with no card, writes the
     reference's file name, and its process stays far below the bytes of
-    the step's real arguments (5.3 GB of bf16 parameters alone)."""
+    the step's real arguments (5.3 GB of bf16 parameters alone); on the
+    16 x 16 mesh the report has rank 0's temporaries, ``fits`` and the
+    collective bytes of the sharded step, and their roofline term."""
     code = ("import resource, runpy, sys\n"
             "sys.argv = ['dryrun'] + sys.argv[1:]\n"
             "try:\n"
@@ -505,10 +507,36 @@ def test_cli_traces_a_train_cell_with_no_card_and_no_allocation(tmp_path):
     assert not any(k.startswith("hlo_") for k in rep)
     assert rep["roofline"]["step_s_lower_bound"] > 0
     assert rep["roofline"]["mfu_bound"] > 0
-    assert rep["temp_bytes_per_device"] is None and rep["fits"] is None
-    assert "ROADMAP item 16" in rep["temp_bytes_note"]
-    assert rep["collective_wire_bytes_per_device"] is None
-    assert "ROADMAP item 16" in rep["collectives_note"]
+    # rank 0 of the sharded step: its peak, and the collectives' bytes
+    assert rep["temp_bytes_per_device"] > 0
+    assert rep["bytes_per_device"] == (
+        rep["argument_bytes_per_device"]["total"]
+        + rep["temp_bytes_per_device"])
+    assert rep["fits"] == (rep["bytes_per_device"] < rep["device_memory"])
+    assert rep["collective_wire_bytes_per_device"] > 0
+    assert rep["collective_operand_bytes_per_device"] > 0
+    assert rep["roofline"]["collective_s"] == pytest.approx(
+        rep["collective_wire_bytes_per_device"] / rep["rates"]["link_bw"])
+    assert "temp_bytes_note" not in rep and "collectives_note" not in rep
     assert rep["rates"]["peak_flops"] == 989e12
     assert rep["model_flops"] == 6.0 * ARCHS[
         "recurrentgemma-2b"].active_param_count() * 256 * 4096
+
+
+def test_moe_cells_keep_null_pod_fields_naming_item_16b():
+    """The MoE families' sharded dispatch is not ported: on a pod mesh
+    their temporaries, ``fits`` and collective bytes stay null, each with
+    a note naming ROADMAP item 16b (a reduced config at the kernels'
+    widths, traced whole)."""
+    arch = dataclasses.replace(REDUCED["phi3.5-moe"], head_dim=64)
+    shape = config.ShapeConfig("s", config.StepKind.PREFILL, 16, 16)
+    rep = dryrun.run_cell(arch, shape, multi_pod=False, verbose=False,
+                          **dryrun.H100_SXM)
+    assert rep["status"] == "ok" and rep["mesh"] == "16x16"
+    assert rep["temp_bytes_per_device"] is None and rep["fits"] is None
+    assert rep["collective_wire_bytes_per_device"] is None
+    assert rep["collective_operand_bytes_per_device"] is None
+    assert rep["roofline"]["collective_s"] is None
+    for note in ("temp_bytes_note", "collectives_note"):
+        assert "ROADMAP item 16b" in rep[note]
+    assert rep["flops"] > 0
