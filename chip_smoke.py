@@ -170,7 +170,16 @@ points:
     (data 2, model 1) mesh:
     recurrentgemma-2b at 3 layers and rwkv6-7b at 2, full width, a loss
     with its gradients and a train step against the unsharded kernel
-    route, every kernel launched on its rank's half of the block;
+    route, every kernel launched on its rank's half of the block; (e)
+    phi3.5-moe at full width, 2 layers, 1 x 4096, 3 train steps through
+    the expert-parallel dispatch on the one-rank mesh, bit for bit the
+    same steps through ``moe_mesh=VirtualMesh(1)``; (f) two ranks sharing
+    the card on a (data 1, model 2) mesh, a real all-to-all between them:
+    phi3.5-moe at 2 layers (8 experts a rank; a forward, a loss with its
+    gradients and a train step) and deepseek-v3 at 4 layers (MLA, the
+    shared expert, the MTP head; a forward and a forward ``loss_fn``), 1 x
+    1024, against ``moe_mesh=VirtualMesh(2)`` under the routing-flip rule,
+    flash launched on each rank's half of the heads at D 128 and D 192;
   * the host us a call of the three LM kernels, layer by layer (wrapper,
     checks and launch, ``torch.library`` operator, its implementation),
     and a recurrentgemma-2b decode wave's ms;
@@ -5088,6 +5097,27 @@ SPLIT_LOSS_RTOL, SPLIT_GRAD_REL, SPLIT_PARAM_REL = 1e-5, 1e-3, 1e-5
 SHARDED_POD_CELLS = (("recurrentgemma-2b", "train_4k", False),
                      ("qwen3-1.7b", "decode_32k", False),
                      ("qwen3-1.7b", "decode_32k", True))
+# (e): phi3.5-moe over the one-rank NCCL mesh at full width (16 experts,
+# top-2, d_expert 6400), 2 of 32 layers, 1 x 4096, 3 sharded train steps
+# through the expert-parallel dispatch (``moe_mesh`` the device mesh),
+# against the same steps through ``moe_mesh=VirtualMesh(1)``, the same
+# dispatch's arithmetic on one virtual shard: bit-equal
+MOE_SHARDED_LAYERS, MOE_SHARDED_S = 2, 4096
+# (f): two ranks sharing the card (``threaded_ranks``) on a (data 1,
+# model 2) mesh, a real all-to-all between them: phi3.5-moe at 2 layers (8
+# experts a rank), a forward, a loss with its gradients and a train step
+# at step 1; deepseek-v3 at MLA_LAYERS (3 dense, 1 MoE with its shared
+# expert, the MTP head; its experts over ("data", "model")), a forward and
+# a forward ``loss_fn``; 1 x SPLIT_MOE_S tokens; against the unsharded
+# route through ``moe_mesh=VirtualMesh(2)``, run first, its results kept
+# on the host. Gates: (d)'s, and the logits within SPLIT_MOE_LOGITS_TOL
+# where no routing flip reaches (the flip rule); with a flip the loss,
+# grads and parameters are reported, not held
+SPLIT_MOE_S = 1024
+SPLIT_MOE_LOGITS_TOL = 1e-4
+SPLIT_MOE_CASES = (("phi3.5-moe", MOE_SHARDED_LAYERS, True),
+                   ("deepseek-v3", MLA_LAYERS, False))  # (model, layers,
+                                                        # train?)
 
 
 def sharded_mesh():
@@ -5612,12 +5642,475 @@ def sharded_split(dev):
     return recs
 
 
+@contextlib.contextmanager
+def record_sharded_routing(store):
+    """Wrap ``moe.moe_forward_sharded`` (here, never in the package) to
+    record, for each call on each shard or rank, (its rank in the expert
+    group, the tokens' expert ids (B, S_loc, k) from the layer's input and
+    router, the assignments its owners drop)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    orig = moe_mod.moe_forward_sharded
+
+    def wrapper(comm, p, x, arch):
+        m = arch.moe
+        T = x.shape[0] * x.shape[1]
+        n = comm.n
+        cap = max(8, -(-int(T * m.top_k / n * m.capacity_factor) // 8) * 8)
+        with torch.no_grad():
+            ids = expert_ids(x, p["router"], m.top_k)
+            owner = ids.reshape(-1) // (m.n_experts // n)
+            dropped = int(torch.clamp(torch.bincount(owner, minlength=n)
+                                      - cap, min=0).sum())
+        store.append(dict(rank=comm.rank, ids=ids, dropped=dropped))
+        return orig(comm, p, x, arch)
+
+    moe_mod.moe_forward_sharded = wrapper
+    try:
+        yield
+    finally:
+        moe_mod.moe_forward_sharded = orig
+
+
+def routing_by_layer(store, n_layers, n_ranks):
+    """``record_sharded_routing``'s records of one pass as ``routing_flips``
+    takes them: each MoE layer's ids with the ranks' sequence blocks put
+    together in rank order, and its drops summed over the ranks."""
+    import torch
+    calls = [[r for r in store if r["rank"] == k][:n_layers]
+             for k in range(n_ranks)]
+    return [dict(ids=torch.cat([calls[k][i]["ids"].cpu()
+                                for k in range(n_ranks)], dim=1),
+                 dropped=sum(calls[k][i]["dropped"] for k in range(n_ranks)))
+            for i in range(n_layers)]
+
+
+def sharded_moe_train(dev):
+    """(e): phi3.5-moe at full width, MOE_SHARDED_LAYERS layers, 1 x
+    MOE_SHARDED_S, sequence parallel, policy SHARDED_POLICY, TRAIN_STEPS
+    train steps: first through ``LMModel(moe_mesh=VirtualMesh(1))`` (the
+    bits to hold, kept on the host), then, on the open one-rank NCCL mesh,
+    through the sharded step with ``moe_mesh`` the device mesh, parameters
+    and opt state placed by the plan, the counts zeroed just before and
+    read just after each step. Gates: losses and parameters bit-equal;
+    every step's flash launches those of the unsharded step, each through
+    its sharding rule, and every MoE layer through the DTensor dispatch;
+    the peak under TRAIN_PEAK_GIB. Returns the record."""
+    import dataclasses
+    import gc
+    import statistics
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import (LM_SHAPES, PlacementPolicy,
+                                         RunConfig, ShardingConfig,
+                                         TrainConfig)
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.launch import sharding_plan as plan
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import train_loop
+    arch = dataclasses.replace(get_arch(MOE_ARCH),
+                               n_layers=MOE_SHARDED_LAYERS)
+    cfg = RunConfig(arch=arch, shape=LM_SHAPES["train_4k"],
+                    train=TrainConfig(warmup_steps=TRAIN_WARMUP),
+                    sharding=ShardingConfig(
+                        policy=PlacementPolicy(SHARDED_POLICY),
+                        sequence_parallel=True))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, 1, MOE_SHARDED_S, step=s, seed=SEED).items()}
+        for s in range(TRAIN_STEPS)]
+    marks = [time.perf_counter()]
+
+    def steps(model, params, state, each=None):
+        step_fn = train_loop.make_train_step(model, cfg,
+                                             total_steps=TRAIN_STEPS)
+        losses = []
+        for s in range(TRAIN_STEPS):
+            if each:
+                each(s, "before")
+            params, state, m = step_fn(params, state, batches[s], s)
+            if each:
+                each(s, "after")
+            losses.append(m["loss"].clone())
+        return params, losses
+
+    model = LMModel(arch, moe_mesh=VirtualMesh(1, dev), device=dev)
+    params = model.init_params(seed=SEED)
+    common.reset_launches()
+    params, plain_losses = steps(model, params, adamw.init(params,
+                                                           cfg.train))
+    want = common.LAUNCHES["flash_attention"] // TRAIN_STEPS
+    plain_losses = [x.cpu() for x in plain_losses]
+    ref = [v.cpu() for v in leaves(params)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+
+    mesh = sharded_mesh()
+    dm = device_mesh(mesh, "cuda")
+    smodel = LMModel(arch, sequence_parallel=True, moe_mesh=dm,
+                     expert_axes=("model",), device=dev)
+    params = smodel.init_params(seed=SEED)
+    state = adamw.init(params, cfg.train)
+    oshard = plan.opt_state_shardings(smodel, cfg, mesh, params, state)
+    params = plan.distribute(params, plan.param_shardings(smodel, cfg, mesh),
+                             dm)
+    state = plan.distribute(state, oshard, dm)
+    dispatched = []
+    orig = moe_mod.moe_forward_dtensor
+
+    def counting(*args, **kwargs):
+        dispatched.append(1)
+        return orig(*args, **kwargs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, routed, calls, step_ms = [], [], [], []
+    ev = {}
+
+    def each(s, when):
+        if when == "before":
+            dispatched.clear()
+            common.reset_launches()             # just before the step
+            ev[s] = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[s][0].record()
+            return
+        ev[s][1].record()
+        torch.cuda.synchronize()
+        launches.append(common.LAUNCHES["flash_attention"])  # just after
+        routed.append(dict(common.SHARDED_CALLS))
+        calls.append(len(dispatched))
+        step_ms.append(ev[s][0].elapsed_time(ev[s][1]))
+    moe_mod.moe_forward_dtensor = counting
+    try:
+        params, losses = steps(smodel, params, state, each)
+    finally:
+        moe_mod.moe_forward_dtensor = orig
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss_bits = [torch.equal(a.cpu(), b) for a, b in zip(losses,
+                                                          plain_losses)]
+    differ = sum(not torch.equal(v.to_local().cpu(), r)
+                 for v, r in zip(leaves(params), ref))
+    marks.append(time.perf_counter())
+    n_leaves = len(ref)
+    del params, state, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(
+        arch=MOE_ARCH, layers=MOE_SHARDED_LAYERS,
+        batch=f"1 x {MOE_SHARDED_S}", experts=arch.moe.n_experts,
+        top_k=arch.moe.top_k, d_expert=arch.moe.d_expert,
+        capacity_factor=arch.moe.capacity_factor,
+        mesh="one NCCL rank, (data 1, model 1)",
+        losses=[float(x) for x in plain_losses], loss_bits_equal=loss_bits,
+        param_leaves_differing=differ, param_leaves=n_leaves,
+        flash_launches_per_step=launches, unsharded_flash_per_step=want,
+        sharded_calls_per_step=routed, dtensor_dispatches_per_step=calls,
+        step_ms=step_ms, warm_step_ms=statistics.median(step_ms[1:]),
+        peak_gib=peak, seconds=dict(unsharded=marks[1] - marks[0],
+                                    sharded=marks[2] - marks[1]))
+    log(f"sharded (e): {json.dumps(rec)}")
+    if not all(loss_bits) or differ:
+        raise AssertionError(f"sharded (e): losses bit-equal {loss_bits}, "
+                             f"{differ} parameter leaves differ from the "
+                             "virtual-mesh route's steps")
+    for i in range(TRAIN_STEPS):
+        if launches[i] != want or not routed[i]["flash_attention"] or \
+                calls[i] != 2 * MOE_SHARDED_LAYERS:
+            raise AssertionError(
+                f"sharded (e): step {i} launched flash {launches[i]} times "
+                f"(want {want}), {routed[i]['flash_attention']} through its "
+                f"rule, {calls[i]} DTensor dispatches (want "
+                f"{2 * MOE_SHARDED_LAYERS}: forward and recompute)")
+    if peak >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"sharded (e): peak {peak:.3f} GiB reaches "
+                             f"{TRAIN_PEAK_GIB}")
+    return rec
+
+
+def block_views(tree, shardings, dm):
+    """``tree``'s tensors as DTensors on ``dm`` whose local tensors are
+    views of this rank's blocks of the whole tensors (no copy: the ranks of
+    ``threaded_ranks`` share the whole tensors, read only)."""
+    from repro_torch.core.partitioning import placements
+    from repro_torch.launch.sharding_plan import _tree_map
+    from torch.distributed.tensor import DTensor
+    coord = dm.get_coordinate()
+
+    def view(t, s):
+        pl = placements(s.spec, s.mesh)
+        local = t
+        for i, q in enumerate(pl):
+            if q.is_shard():
+                k = local.shape[q.dim] // dm.size(i)
+                local = local.narrow(q.dim, coord[i] * k, k)
+        return DTensor.from_local(local, dm, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return _tree_map(view, tree, shardings)
+
+
+def split_moe_case(dev, name, layers, train):
+    """(f) for one model: ``name`` at ``layers`` layers and full width, 1 x
+    SPLIT_MOE_S, on the (data 1, model 2) mesh, model-parallel padding 2,
+    its experts over "model" (phi3.5-moe) or ("data", "model")
+    (deepseek-v3, ``expert_parallel_data``). First the unsharded route
+    (``moe_mesh=VirtualMesh(SPLIT_RANKS)``) in this thread: a forward
+    (logits, aux), then a loss with its gradients and SPLIT_STEPS train
+    steps from step 1 (``train``) or a forward ``loss_fn``; its results
+    moved to the host. Then the same through the sharded step on
+    SPLIT_RANKS ranks (``threaded_ranks``): parameters placed by the plan
+    (for a model that only runs forward, views of the unsharded route's
+    own parameters, which stay on the card: two copies of deepseek-v3's
+    do not fit). The expert ids of each forward's MoE layers, the launches
+    (of all ranks), the calls through the kernels' rules and the shapes
+    flash launched on are read around each part. Returns the record, each
+    rank's differences from the unsharded route."""
+    import dataclasses
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import (LM_SHAPES, PlacementPolicy,
+                                         RunConfig, ShardingConfig,
+                                         TrainConfig)
+    from repro_torch.core.partitioning import MeshSpec, P, named
+    from repro_torch.core.vmesh import VirtualMesh
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import sharding_plan as plan
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime import train_loop
+    sizes = (1, SPLIT_RANKS)
+    arch = dataclasses.replace(get_arch(name), n_layers=layers)
+    epd = name == MLA_ARCH
+    axes = ("data", "model") if epd else ("model",)
+    mesh = MeshSpec(("data", "model"), sizes,
+                    np.arange(SPLIT_RANKS).reshape(sizes))
+    tp = sizes[1]
+    cfg = RunConfig(arch=arch, shape=dataclasses.replace(
+        LM_SHAPES["train_4k"], global_batch=1, seq_len=SPLIT_MOE_S),
+        train=TrainConfig(warmup_steps=TRAIN_WARMUP),
+        sharding=ShardingConfig(policy=PlacementPolicy(SHARDED_POLICY),
+                                sequence_parallel=True,
+                                expert_parallel_data=epd))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        arch, 1, SPLIT_MOE_S, step=s, seed=SEED).items()}
+        for s in range(SPLIT_STEPS)]
+    n_moe = layers - arch.moe.n_dense_layers
+    shapes = set()
+    real = fa_ops._launch
+
+    def spy(x, *args, **kwargs):
+        shapes.add(tuple(x.shape))
+        return real(x, *args, **kwargs)
+
+    def run(model, params, batch0, state=None):
+        """(logits, aux, loss, grads, step losses, final params) on the
+        card as they lie (grads and steps only with ``train``)."""
+        with torch.no_grad():
+            logits, _, aux = model.forward(params, {"tokens":
+                                                    batch0["tokens"]})
+        if not train:
+            with torch.no_grad(), common.replicating(params):
+                loss, _ = model.loss_fn(params, batch0)
+            return logits, aux, loss, [], [], []
+        loss, grads = loss_and_grads(model, params, batch0)
+        step_fn = train_loop.make_train_step(model, cfg,
+                                             total_steps=SPLIT_STEPS + 1)
+        losses = []
+        for s in range(SPLIT_STEPS):
+            params, state, m = step_fn(params, state, batches[s], s + 1)
+            losses.append(m["loss"])
+        return logits, aux, loss, list(grads), losses, list(leaves(params))
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def counted(fn):
+        shapes.clear()
+        common.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, common.LAUNCHES["flash_attention"],
+                dict(common.SHARDED_CALLS), sorted(shapes))
+
+    rec_u, rec_s = [], []
+    fa_ops._launch = spy
+    try:
+        model = LMModel(arch, tp=tp, moe_mesh=VirtualMesh(SPLIT_RANKS, dev),
+                        device=dev)
+        params = model.init_params(seed=SEED)
+        with record_sharded_routing(rec_u):
+            want, want_launches, _, want_shapes = counted(lambda: run(
+                model, params, batches[0],
+                adamw.init(params, cfg.train) if train else None))
+        want = [want[0].cpu(), want[1].cpu(), want[2].cpu(),
+                [g.cpu() for g in want[3]], [x.cpu() for x in want[4]],
+                [v.cpu() for v in want[5]]]
+        if train:
+            params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def rel(a, b):
+            a, b = a.double(), b.double()
+            return float((a - b).abs().max() / b.abs().max())
+
+        def l2(xs, ws):
+            """[(squared distance, squared norm)] a leaf, on the card in
+            float64, up to 256 MiB of its rows at a time."""
+            out = []
+            for x, w in zip(xs, ws):
+                x, w = whole(x).reshape(-1), w.reshape(-1)
+                dist2 = norm2 = 0.0
+                for lo in range(0, x.numel(), 1 << 25):
+                    a = x[lo:lo + (1 << 25)].double()
+                    b = w[lo:lo + (1 << 25)].to(dev).double()
+                    dist2 += float((a - b).square().sum())
+                    norm2 += float(b.square().sum())
+                out.append((dist2, norm2))
+            return out
+
+        init_lock = threading.Lock()
+
+        def sharded(rank):
+            dm = device_mesh(mesh, dev.type)
+            smodel = LMModel(arch, tp=tp, sequence_parallel=True,
+                             moe_mesh=dm, expert_axes=axes, device=dev)
+            pshard = plan.param_shardings(smodel, cfg, mesh)
+            if train:
+                # one rank at a time draws the whole parameters; the state
+                # is made on the blocks, in the parameters' placements
+                # (ZeRO-1's, the data axis being of one rank)
+                with init_lock:
+                    p = plan.distribute(smodel.init_params(seed=SEED),
+                                        pshard, dm)
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                zeros = adamw._dtype(cfg.train.moment_dtype)
+                state = adamw.AdamWState(
+                    plan.distribute(torch.zeros((), dtype=torch.int32,
+                                                device=dev),
+                                    named(mesh, P()), dm),
+                    adamw._map(lambda v: torch.zeros_like(v, dtype=zeros),
+                               p),
+                    adamw._map(lambda v: torch.zeros_like(v, dtype=zeros),
+                               p),
+                    adamw._map(lambda v: v.detach().to(torch.float32,
+                                                       copy=True), p))
+            else:
+                p, state = block_views(params, pshard, dm), None
+            bsh = plan.batch_specs(arch, cfg.shape, mesh)["shardings"]
+            got = run(smodel, p, plan.distribute(
+                batches[0], {k: bsh[k] for k in batches[0]}, dm), state)
+            logits = whole(got[0]).cpu()
+            out = dict(logits=logits, aux=float(whole(got[1])),
+                       loss_rel_err=rel(whole(got[2]).cpu(), want[2]))
+            if train:
+                g, q = l2(got[3], want[3]), l2(got[5], want[5])
+                out.update(
+                    step_loss_rel_err=max(rel(whole(x).cpu(), w)
+                                          for x, w in zip(got[4], want[4])),
+                    grad_leaf_l2_rel_err=max((a / b) ** 0.5 for a, b in g),
+                    grad_l2_rel_err=(sum(a for a, _ in g)
+                                     / sum(b for _, b in g)) ** 0.5,
+                    param_rel_err=(sum(a for a, _ in q)
+                                   / sum(b for _, b in q)) ** 0.5)
+            return out
+        with record_sharded_routing(rec_s):
+            got, launches, routed, got_shapes = counted(
+                lambda: threaded_ranks(sharded, SPLIT_RANKS))
+    finally:
+        fa_ops._launch = real
+    params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    flips = routing_flips(routing_by_layer(rec_u, n_moe, SPLIT_RANKS),
+                          routing_by_layer(rec_s, n_moe, SPLIT_RANKS))
+    dropped = [max(a["dropped"], b["dropped"]) for a, b in zip(
+        routing_by_layer(rec_u, n_moe, SPLIT_RANKS),
+        routing_by_layer(rec_s, n_moe, SPLIT_RANKS))]
+    reach = flip_reach(flips, dropped, 1, SPLIT_MOE_S)
+    errs = []
+    for r, e in enumerate(got):
+        keep = ~reach[0]
+        errs.append(held(e.pop("logits")[0][keep], want[0][0][keep],
+                         SPLIT_MOE_LOGITS_TOL,
+                         f"sharded (f) {name} rank {r} logits"))
+        e["aux_rel_err"] = abs(e["aux"] - float(want[1])) / abs(
+            float(want[1]))
+    return dict(
+        arch=name, layers=layers, batch=f"1 x {SPLIT_MOE_S}",
+        mesh=dict(zip(("data", "model"), sizes)), expert_axes=axes,
+        loss=float(want[2]), flips=len(flips), flip_positions=flips,
+        dropped=dropped, held_shares=held_shares(reach),
+        logits_errs=errs, ranks=got, launches=launches,
+        unsharded_launches=want_launches, sharded_calls=routed,
+        local_shapes=got_shapes, unsharded_shapes=want_shapes)
+
+
+def sharded_moe_split(dev):
+    """(f): the MoE and MLA families' sharded step on real splits,
+    SPLIT_RANKS ranks sharing the one card (``split_moe_case`` for each
+    of SPLIT_MOE_CASES). Gates, on every rank: at most MAX_FLIPS routing
+    flips, each sequence held at MIN_HELD of its positions, the logits
+    within SPLIT_MOE_LOGITS_TOL where no flip reaches; with no flip, the
+    loss and the step losses within SPLIT_LOSS_RTOL, every gradient leaf
+    within SPLIT_GRAD_REL and the parameters after the steps within
+    SPLIT_PARAM_REL of the unsharded route (relative L2), the aux loss
+    within SPLIT_LOSS_RTOL; flash launched on the halved heads (dim 2),
+    every call through its rule. Returns the records."""
+    recs = []
+    for name, layers, train in SPLIT_MOE_CASES:
+        t0 = time.perf_counter()
+        rec = split_moe_case(dev, name, layers, train)
+        rec["seconds"] = time.perf_counter() - t0
+        rec["peak_gib"] = peak_line(f"sharded (f) {name}")
+        log(f"sharded (f): {json.dumps(rec)}")
+        recs.append(rec)
+        label = f"sharded (f) {name}"
+        flip_gate(rec["flip_positions"], rec["held_shares"], label)
+        for r, e in enumerate(rec["ranks"]):
+            if rec["flips"]:
+                continue
+            bad = [k for k, lim in (
+                ("loss_rel_err", SPLIT_LOSS_RTOL),
+                ("aux_rel_err", SPLIT_LOSS_RTOL),
+                ("step_loss_rel_err", SPLIT_LOSS_RTOL),
+                ("grad_leaf_l2_rel_err", SPLIT_GRAD_REL),
+                ("param_rel_err", SPLIT_PARAM_REL)) if e.get(k, 0.0) > lim]
+            if bad:
+                raise AssertionError(f"{label}: rank {r} beyond the "
+                                     f"unsharded route in {bad}: {e}")
+        want = sorted(halved(s, 2) for s in rec["unsharded_shapes"])
+        if not rec["unsharded_launches"] or not rec["launches"] or \
+                not rec["sharded_calls"]["flash_attention"] or \
+                rec["local_shapes"] != want:
+            raise AssertionError(
+                f"{label}: flash launched {rec['launches']} times "
+                f"({rec['unsharded_launches']} unsharded), "
+                f"{rec['sharded_calls']['flash_attention']} through its "
+                f"rule, on {rec['local_shapes']}, want {want}")
+    return recs
+
+
 def sharded_phase(dev):
-    """The sharded step on the card: (a) ``sharded_train`` and (b)
-    ``sharded_rwkv`` over one NCCL rank (NCCL puts one rank on a card),
-    the trace of (a)'s cell, (c), inside ``sharded_train``; then (d)
-    ``sharded_split``, two ranks sharing the card that split a mesh axis.
-    Returns ({kernel: launches of (a)'s step and (b)}, the phase's
+    """The sharded step on the card: (a) ``sharded_train``, (b)
+    ``sharded_rwkv`` and (e) ``sharded_moe_train`` over one NCCL rank
+    (NCCL puts one rank on a card), the trace of (a)'s cell, (c), inside
+    ``sharded_train``; then (d) ``sharded_split`` and (f)
+    ``sharded_moe_split``, two ranks sharing the card that split a mesh
+    axis. Returns ({kernel: launches of (a)'s step and (b)}, the phase's
     numbers)."""
     import tempfile
     import torch
@@ -5641,15 +6134,23 @@ def sharded_phase(dev):
         t_a = time.perf_counter()
         b = sharded_rwkv(dev)
         peak_line("sharded (b)")
-    t_b = time.perf_counter()
+        t_b = time.perf_counter()
+        e = sharded_moe_train(dev)
+        peak_line("sharded (e)")
+    t_e = time.perf_counter()
     d = sharded_split(dev)
+    t_d = time.perf_counter()
+    f = sharded_moe_split(dev)
+    peak_line("sharded (f)")
     t_end = time.perf_counter()
     log(f"sharded phase: {t_end - t0:.3f} s ((a) {t_a - t0:.3f}, (b) "
-        f"{t_b - t_a:.3f}, (d) {t_end - t_b:.3f})")
+        f"{t_b - t_a:.3f}, (e) {t_e - t_b:.3f}, (d) {t_d - t_e:.3f}, (f) "
+        f"{t_end - t_d:.3f})")
     launches = {n: a["launches_per_step"][-1][n]
                 for n in ("flash_attention", "rglru_scan")}
     launches["wkv6"] = b["launches"]["wkv6"]
-    return launches, dict(train=a, rwkv=b, split=d, seconds=t_end - t0)
+    return launches, dict(train=a, rwkv=b, moe_train=e, split=d,
+                          moe_split=f, seconds=t_end - t0)
 
 
 def pod_reports_phase():
@@ -5947,6 +6448,13 @@ def main() -> int:
         f"{train_numbers['peak_gib']!r}")
     for row in lm_kernels + [wkv_kernel]:
         row["launches_sharded"] = sharded_launches[row["name"]]
+    lm_kernels[0].update(
+        launches_sharded_moe_step=sharded_numbers["moe_train"][
+            "flash_launches_per_step"][-1],
+        launches_sharded_moe_split={
+            r["arch"]: r["launches"] for r in sharded_numbers["moe_split"]},
+        sharded_moe_split_shapes={
+            r["arch"]: r["local_shapes"] for r in sharded_numbers["moe_split"]})
     host_numbers = host_cost(dev)
     log(f"host cost: {json.dumps(host_numbers)}")
     # the last timed phase is over: the CPU-bound traces come after it

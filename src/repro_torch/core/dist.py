@@ -2,9 +2,9 @@
 
 The multi-process counterpart of ``core.vmesh``. ``DistCommunicator``
 offers the methods of ``vmesh.Communicator`` with the same semantics
-(``psum``, ``pmax``, ``pmin``, ``psum_scatter``, ``all_gather`` and
-``all_to_all``, all tiled on dimension 0, ``axis_index``, ``rank``,
-``n``), over a process group that the caller initializes
+(``psum``, ``pmean``, ``pmax``, ``pmin``, ``psum_scatter``,
+``all_gather`` and ``all_to_all``, all tiled on dimension 0,
+``axis_index``, ``rank``, ``n``), over a process group that the caller initializes
 (``process_group`` below, or ``torch.distributed.init_process_group``
 with a timeout). ``DistMesh(group).run(fn, inputs)`` has the shape of
 ``VirtualMesh.run``: it calls ``fn(comm, inputs[rank])`` for this
@@ -34,6 +34,11 @@ adds in the same order. ``traffic``
 counts, per torch.distributed call, the calls made and the bytes this
 rank handed to them (the payload; what crosses a link depends on the
 backend's algorithm and on n, and is 0 at n = 1).
+
+``MeshCommunicator`` is the sharded step's: the collectives of the MoE
+dispatch on each rank's local blocks of a ``DeviceMesh``, over the
+process groups of its axes, through PyTorch's functional collectives,
+which carry gradients.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import contextlib
 import datetime
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -121,6 +127,9 @@ class DistCommunicator:
         if _integral(x):
             return self._all_reduce(x, dist.ReduceOp.SUM)
         return self._combine(x, torch.add)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        return self.psum(x) / self.n
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         if _integral(x):
@@ -207,3 +216,111 @@ def process_group(backend: str, *, rank: int, world_size: int,
         yield DistMesh()
     finally:
         dist.destroy_process_group()
+
+
+class _MeanOverMesh(torch.autograd.Function):
+    """The mean over every rank of the group: an all-reduce of the sum,
+    divided by the group's size. Its gradient is the true one of a mean
+    whose result every rank holds: each rank's share of the (replicated)
+    cotangent, with no collective, as ``jax.grad`` gives through the
+    reference's ``pmean`` under ``shard_map`` (measured on 4 fake devices:
+    the router's gradient equals the unsharded model's)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.n = n
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group)) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _sub_group(mesh, axes: Sequence[str]):
+    """The process group over ``axes`` of the ``DeviceMesh`` ``mesh`` (each
+    of more than one rank), several axes flattened major to minor in mesh
+    order, so that a rank's index in it is its coordinates on ``axes``
+    read major to minor, the layout of a dim split over those axes; None
+    for no axis. A flattened group is made once a mesh and process group
+    (every rank makes the groups of every other, in one order) and kept on
+    the mesh object, which can outlive its process group; the mesh's rank
+    grid is read as a real tensor under a fake mode too (the dry run's
+    trace)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    groups = mesh.__dict__.setdefault("_flattened_groups", {})
+    if groups.get("world") is not dist.group.WORLD:    # a group made anew
+        groups.clear()
+        groups["world"] = dist.group.WORLD
+    if tuple(axes) not in groups:
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        with unset_fake_temporarily():
+            grid = mesh.mesh.permute(rest + dims).reshape(
+                -1, int(np.prod([mesh.size(i) for i in dims]))).tolist()
+        if any(row != sorted(row) for row in grid):
+            raise ValueError(f"the ranks of axes {tuple(axes)} are not in "
+                             "coordinate order, which a group's order is")
+        groups[tuple(axes)], _ = dist.new_subgroups_by_enumeration(grid)
+    return groups[tuple(axes)]
+
+
+class MeshCommunicator:
+    """``moe.moe_forward_sharded``'s collectives on each rank's local blocks
+    of a ``DeviceMesh`` (the sharded step): ``all_to_all`` over the group
+    of the expert axes (several flattened, as experts are laid out over
+    them), ``pmean`` over the whole mesh, as the reference's ``pmean`` over
+    every axis name. Both carry gradients: the all-to-all's backward is
+    the reverse all-to-all (``all_to_all_single_autograd``); the mean's,
+    ``_MeanOverMesh``'s. ``n`` is the expert group's size, ``rank`` this
+    rank's index in it; axes of one rank are left out of the group, and a
+    group of one rank issues no collective."""
+
+    def __init__(self, mesh, expert_axes: Sequence[str]):
+        names = tuple(mesh.mesh_dim_names)
+        missing = [a for a in expert_axes if a not in names]
+        if missing:
+            raise ValueError(f"expert axes {missing} are not in the mesh's "
+                             f"{names}")
+        order = [a for a in names if a in expert_axes and
+                 mesh.size(names.index(a)) > 1]
+        self.axes = tuple(order)
+        self.group = _sub_group(mesh, self.axes)
+        alone = self.group is None
+        self.n = 1 if alone else dist.get_world_size(self.group)
+        self.rank = 0 if alone else dist.get_rank(self.group)
+        self.n_mesh = mesh.size()
+        self.mesh_group = _sub_group(mesh, [
+            a for i, a in enumerate(names) if mesh.size(i) > 1])
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over every rank of the mesh."""
+        if self.mesh_group is None:             # the virtual mesh's op
+            return x / 1
+        return _MeanOverMesh.apply(x, self.mesh_group, self.n_mesh)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_to_all(x, split_axis=0, concat_axis=0, tiled=True)`` over
+        the expert group."""
+        if x.dim() == 0 or x.shape[0] % self.n:
+            raise ValueError(f"all_to_all: {tuple(x.shape)[:1]} rows do "
+                             f"not split into {self.n} shards")
+        if self.group is None:
+            return x
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_to_all_single_autograd(
+            x.contiguous(), None, None, self.group))
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_gather(x, tiled=True)`` over the expert group, without a
+        gradient."""
+        if self.group is None:
+            return x
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_gather_tensor(
+            x.contiguous(), 0, self.group))

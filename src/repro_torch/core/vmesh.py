@@ -13,7 +13,8 @@ all slots. The semantics are those of ``jax.lax`` over the mesh axis:
 
   psum / pmax / pmin       elementwise over the shards, combined in RANK
                            order, so a float psum gives the same bits on
-                           every run and every shard;
+                           every run and every shard; pmean the psum over
+                           the shard count;
   psum_scatter             (tiled, scatter dimension 0) the psum, of which
                            shard i keeps row block i;
   all_gather               (tiled) the shards' tensors concatenated along
@@ -134,6 +135,10 @@ class Communicator:
         for p in parts[1:]:
             out = out + p
         return out
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """``pmean``: the psum divided by the shard count."""
+        return self.psum(x) / self.n
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         parts = self._exchange("pmax", x)

@@ -73,9 +73,11 @@ def count_launch(name: str) -> None:
 
 # Calls of the LM kernels on DTensors, each through its sharding rule
 # (``on_shards``): the sharded step's route, counted beside the launches;
-# and of the plain one-token decode attention, which has no kernel.
+# and of the plain steps that run on local blocks the same way: the
+# one-token decode attention, which has no kernel, and MLA's assembly of
+# per-head q, k and v and its absorbed decode.
 SHARDED_CALLS = {"flash_attention": 0, "rglru_scan": 0, "wkv6": 0,
-                 "decode_attention": 0}
+                 "decode_attention": 0, "mla_heads": 0, "mla_decode": 0}
 
 
 def reset_launches() -> None:
@@ -124,9 +126,9 @@ def pick_block(size: int, preferred: int, minimum: int = 8) -> int:
 class ShardRule:
     """Where a kernel's tensors may be split: ``roles`` maps a role
     ("batch", "heads", ...) to the dim each tensor input splits along for
-    it (None: replicated under that role) and ``outputs`` to each output's.
-    A mesh axis either replicates every tensor or splits them all along
-    one role's dims."""
+    it (None: replicated under that role) and ``outputs`` to each output's
+    (None: replicated). A mesh axis either replicates every tensor or
+    splits them all along one role's dims."""
 
     def __init__(self, name: str, roles: Dict[str, Sequence[Optional[int]]],
                  outputs: Dict[str, Sequence[int]]):
@@ -140,7 +142,8 @@ class ShardRule:
         if role is None:
             return ([Replicate()] * len(next(iter(self.outputs.values()))),
                     [Replicate()] * n_in)
-        return ([Shard(d) for d in self.outputs[role]],
+        return ([Replicate() if d is None else Shard(d)
+                 for d in self.outputs[role]],
                 [Replicate() if d is None else Shard(d)
                  for d in self.roles[role]])
 

@@ -36,9 +36,10 @@ sharded step, under a fake process group of the mesh's world size
 (``fake_sharded``), the live bytes counted on rank 0's local storages
 and every ``_c10d_functional`` collective recorded (kind, result bytes,
 group size) and priced by the reference's per-kind arithmetic
-(``collective_cost``). The MoE families' sharded dispatch is not ported
-(ROADMAP item 16b): their pod-mesh fields stay null. On the one-card mesh
-the first trace's peak is the device's.
+(``collective_cost``): DTensor's redistributions and, in the MoE
+families' expert-parallel dispatch (``build_cell`` gives the model the
+mesh as ``moe_mesh``, as the reference does), the all-to-alls and the aux
+loss's mean. On the one-card mesh the first trace's peak is the device's.
 
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch recurrentgemma-2b --shape train_4k
@@ -89,8 +90,6 @@ H100_SXM = dict(peak_flops=989e12,      # bf16 tensor cores, dense
                 device_memory=80e9)     # 80 GB
 H100_SXM_SOURCE = ("NVIDIA H100 SXM data sheet: 989 TFLOP/s bf16 dense, "
                    "3.35 TB/s, NVLink 450 GB/s each way, 80 GB")
-SHARDED_MOE = ("needs the MoE families' sharded dispatch (ROADMAP item "
-               "16b)")
 # the reference's five collective kinds, by the ``_c10d_functional``
 # operators that DTensor issues
 _COLLECTIVE_KINDS = {
@@ -104,6 +103,9 @@ _COLLECTIVE_KINDS = {
 }
 # operators of that namespace that move nothing
 _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+# the namespaces of the functional collectives (PyTorch 2.11 keeps the
+# autograd-carrying all-to-all in a namespace of its own)
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 # caching allocator's rounding of every block (c10's kMinBlockSize)
@@ -406,7 +408,7 @@ class _Tracker(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         if self.paused:
             return out
-        if func.namespace == "_c10d_functional":
+        if func.namespace in _COLLECTIVE_NAMESPACES:
             if func._opname in _NOT_COLLECTIVES:
                 self._alias_of(_tensors(args)[0], out)
                 return out
@@ -562,12 +564,6 @@ def fake_sharded(tree: Any, shardings: Any, dmesh,
     return _tree_map(place, tree, shardings)
 
 
-def is_sharded_cell(arch: ArchConfig) -> bool:
-    """True where the sharded step is ported: every family but the MoE
-    ones (their dispatch is ROADMAP item 16b)."""
-    return arch.moe is None
-
-
 def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
                cfg: RunConfig, kernel_mode: Optional[str] = None,
                dmesh=None):
@@ -576,14 +572,25 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
     route on the stand-in; ``kernel_mode="ref"`` traces the plain versions
     in place of the kernels' operators. With ``dmesh`` (the
     ``DeviceMesh`` of ``mesh`` over a ``fake_group``) the arguments are
-    fake DTensors placed by the plan and the step is the sharded one."""
+    fake DTensors placed by the plan and the step is the sharded one; an
+    MoE model then takes the mesh as ``moe_mesh`` for a full-sequence step
+    under sequence parallelism, its experts over ("data", "model") with
+    ``expert_parallel_data``, else over "model" (the reference's
+    choices; the whole step's trace keeps the one-device dispatch)."""
     dev = card_stand_in()
     data_axes = data_axes_for(mesh) + (
         ("model",) if cfg.sharding.strategy == "fsdp" else ())
+    use_sharded_moe = (arch.moe is not None and dmesh is not None
+                       and cfg.sharding.sequence_parallel
+                       and shape.kind != StepKind.DECODE)
+    expert_axes = (("data", "model") if cfg.sharding.expert_parallel_data
+                   else ("model",))
     model = LMModel(arch, tp=model_tp(mesh, cfg), remat=cfg.train.remat,
                     sequence_parallel=cfg.sharding.sequence_parallel,
                     data_axes=data_axes,
-                    kernel_mode=kernel_mode or "cuda", device=dev)
+                    kernel_mode=kernel_mode or "cuda", device=dev,
+                    moe_mesh=dmesh if use_sharded_moe else None,
+                    expert_axes=expert_axes)
     if dmesh is None:
         def make(tree, _shardings):
             return fake_like(tree, dev)
@@ -634,16 +641,25 @@ def trace_cell(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
 # where the step runs a per-token Python loop (the WKV6 backward, autograd
 # through the plain ``wkv6_ref``, ~16 ms a token a layer on fake tensors:
 # rwkv6-7b's train_4k would take ~35 min at full depth, ~3 min as two
-# shallow traces), shallow traces extrapolated linearly in depth.
+# shallow traces), or where rank 0's sharded trace of a deep MoE stack
+# with leading dense layers would (deepseek-v3: 61 layers, 8
+# microbatches), shallow traces extrapolated linearly in depth.
 # ---------------------------------------------------------------------------
 _COST_KEYS = ("flops", "bytes", "step_peak_bytes")
 _SHARDED_KEYS = ("bytes", "step_peak_bytes")
 
 
-def needs_calibration(arch: ArchConfig, shape: ShapeConfig) -> bool:
+def needs_calibration(arch: ArchConfig, shape: ShapeConfig,
+                      sharded: bool = False) -> bool:
     """True where a full-depth trace would step a plain scan token by
-    token: rwkv's train step (its WKV6 backward)."""
-    return arch.family == "ssm" and shape.kind == StepKind.TRAIN
+    token (rwkv's train step: its WKV6 backward) and, for rank 0's
+    sharded trace, for an MoE stack with leading dense layers that is
+    deeper than its calibration traces."""
+    if arch.family == "ssm" and shape.kind == StepKind.TRAIN:
+        return True
+    return sharded and arch.moe is not None and \
+        arch.moe.n_dense_layers > 0 and \
+        arch.n_layers > calibration_depths(arch)[1]
 
 
 def _extrapolate(c1: Any, c2: Any, n: int) -> Any:
@@ -657,31 +673,50 @@ def calibrate_costs(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
                     cfg: RunConfig, sharded: bool = False
                     ) -> Dict[str, Any]:
     """Full-depth FLOPs, bytes and step peak of a stack of identical
-    layers, extrapolated from traces at 1 and 2 layers. Eager costs are
-    linear in the depth of such a stack (one stacked leaf a parameter,
-    every layer the same operators), so FLOPs and bytes are exact. The
-    peak is not additive in general: on the reduced configs that the tests
-    also trace at full depth it is exact for train and decode steps (the
-    only cells ``run_cell`` extrapolates are train steps) and over by at
-    most two of the allocator's blocks for a prefill. The reference's
-    hybrid and MoE structures are not ported: those stacks trace at full
-    depth. ``sharded`` extrapolates rank 0's sharded trace the same way,
-    its collectives (every layer issues the same) with it."""
-    if arch.family == "hybrid" or (arch.moe is not None
-                                   and arch.moe.n_dense_layers):
+    layers, extrapolated from traces at 1 and 2 layers; of an MoE stack
+    with leading dense layers, per MoE layer from traces at two depths
+    after them (``calibration_depths``: the reference's calibration).
+    Eager costs are linear in the depth of such a stack (one stacked leaf
+    a parameter, every layer the same operators), so FLOPs and bytes are
+    exact. The peak is not additive in general: on the reduced configs
+    that the tests also trace at full depth it is exact for train and
+    decode steps (the only cells ``run_cell`` extrapolates are train
+    steps) and over by at most two of the allocator's blocks for a
+    prefill. The reference's hybrid super-block structure is not ported:
+    those stacks trace at full depth. ``sharded`` extrapolates rank 0's
+    sharded trace the same way, its collectives (every layer of a stack
+    issues the same) with it."""
+    n1, n2 = calibration_depths(arch)
+    if arch.family == "hybrid":
         raise ValueError(f"{arch.name}: calibrate_costs extrapolates a "
                          "stack of identical layers")
+    if arch.n_layers < n1:
+        raise ValueError(f"{arch.name}: calibrate_costs extrapolates a "
+                         f"stack of identical layers from {n1} layers up; "
+                         f"{arch.n_layers} are fewer")
     c1, c2 = (trace_cell(dataclasses.replace(arch, n_layers=n), shape, mesh,
-                         cfg, sharded=sharded) for n in (1, 2))
+                         cfg, sharded=sharded) for n in (n1, n2))
     keys = _SHARDED_KEYS + ("collectives",) if sharded else _COST_KEYS
-    return {k: _extrapolate(c1[k], c2[k], arch.n_layers) for k in keys}
+    return {k: _extrapolate(c1[k], c2[k], arch.n_layers - n1 + 1)
+            for k in keys}
+
+
+def calibration_depths(arch: ArchConfig) -> Tuple[int, int]:
+    """The two depths ``calibrate_costs`` traces: one and two layers of a
+    stack of identical layers; two and three MoE layers after an MoE
+    stack's leading dense layers (the reference takes one and two: on
+    DTensors a step with one MoE layer moves other bytes than the next
+    layer adds, while two to three to four add the same, reduced
+    deepseek-v3 on a (2, 2) mesh, tests/test_torch_dryrun_depth.py)."""
+    nd = arch.moe.n_dense_layers if arch.moe is not None else 0
+    return (nd + 2, nd + 3) if nd else (1, 2)
 
 
 def cell_costs(arch: ArchConfig, shape: ShapeConfig, mesh: MeshSpec,
                cfg: RunConfig, sharded: bool = False) -> Dict[str, Any]:
     """The traced costs ``run_cell`` reports: ``trace_cell``'s at full
     depth, or ``calibrate_costs``' where a cell needs calibration."""
-    if needs_calibration(arch, shape):
+    if needs_calibration(arch, shape, sharded):
         return calibrate_costs(arch, shape, mesh, cfg, sharded=sharded)
     return trace_cell(arch, shape, mesh, cfg, sharded=sharded)
 
@@ -754,7 +789,8 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
     t0 = time.perf_counter()
     cost = cell_costs(arch, shape, mesh, cfg)
     if needs_calibration(arch, shape):
-        report["depth"] = "extrapolated from traces at 1 and 2 layers"
+        report["depth"] = "extrapolated from traces at %d and %d layers" \
+            % calibration_depths(arch)
         report["outputs"] = None
     else:
         report["depth"] = "full"
@@ -762,25 +798,21 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
         report["trace_device"] = cost["trace_device"]
     # ---- rank 0 of the sharded step on a pod mesh ---------------------------
     shard = None
-    if chips > 1 and is_sharded_cell(arch):
+    if chips > 1:
         shard = cell_costs(arch, shape, mesh, cfg, sharded=True)
+        if needs_calibration(arch, shape, sharded=True):
+            report["sharded_depth"] = "extrapolated from traces at " \
+                "%d and %d layers" % calibration_depths(arch)
     report["trace_s"] = round(time.perf_counter() - t0, 1)
     report["status"] = "ok"
 
     # ---- memory (proves it fits) ------------------------------------------
     report["argument_bytes_per_device"] = args_b
-    if chips == 1 or shard is not None:
-        temp_b = (cost if shard is None else shard)["step_peak_bytes"]
-        per_device = args_b["total"] + temp_b
-        report["temp_bytes_per_device"] = temp_b
-        report["bytes_per_device"] = per_device
-        report["fits"] = bool(per_device < device_memory)
-    else:
-        report["temp_bytes_per_device"] = None
-        report["bytes_per_device"] = None
-        report["fits"] = None
-        report["temp_bytes_note"] = SHARDED_MOE
-        report["arguments_fit"] = bool(args_b["total"] < device_memory)
+    temp_b = (cost if shard is None else shard)["step_peak_bytes"]
+    per_device = args_b["total"] + temp_b
+    report["temp_bytes_per_device"] = temp_b
+    report["bytes_per_device"] = per_device
+    report["fits"] = bool(per_device < device_memory)
     report["device_memory"] = device_memory
 
     # ---- FLOPs, bytes, collectives ------------------------------------------
@@ -788,29 +820,23 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig],
     report["flops_per_device"] = cost["flops"] / chips
     report["bytes_accessed"] = float(cost["bytes"])
     report["bytes_accessed_per_device"] = cost["bytes"] / chips
-    if chips == 1:
+    if shard is None:
         coll = 0.0
         report["collective_operand_bytes_per_device"] = 0.0
         report["collective_wire_bytes_per_device"] = 0.0
-    elif shard is not None:
+    else:
         coll = shard["collectives"]["wire_bytes"]
         report["collectives"] = shard["collectives"]
         report["collective_operand_bytes_per_device"] = \
             shard["collectives"]["operand_bytes"]
         report["collective_wire_bytes_per_device"] = coll
-    else:
-        coll = None
-        report["collective_operand_bytes_per_device"] = None
-        report["collective_wire_bytes_per_device"] = None
-        report["collectives_note"] = SHARDED_MOE
 
     # ---- roofline terms -------------------------------------------------------
     compute_s = report["flops"] / (chips * peak_flops)
     memory_s = report["bytes_accessed"] / (chips * hbm_bw)
-    collective_s = None if coll is None else coll / link_bw
-    terms = [("compute", compute_s), ("memory", memory_s)]
-    if collective_s is not None:
-        terms.append(("collective", collective_s))
+    collective_s = coll / link_bw
+    terms = [("compute", compute_s), ("memory", memory_s),
+             ("collective", collective_s)]
     report["roofline"] = {
         "compute_s": compute_s, "memory_s": memory_s,
         "collective_s": collective_s,

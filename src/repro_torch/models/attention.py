@@ -19,7 +19,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.config import ArchConfig, PaddedDims, RopeKind
 from repro_torch.core.params import pdef
@@ -227,14 +226,36 @@ def mla_forward(p: Dict[str, Any], x: torch.Tensor, arch: ArchConfig, *,
     k_rope = apply_rope(k_rope[..., None, :], positions, arch.rope_theta)
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
     v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
-    H = q_nope.shape[2]
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(-1, -1, H, -1)], dim=-1)
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
-    v_pad = F.pad(v, (0, qk_head - m.v_head_dim))
+    args = (q_nope, q_rope, k_nope, k_rope, v)
+    if is_sharded(*args):
+        q, k, v_pad = on_shards(_mla_heads, MLA_HEADS_RULE, args, (qk_head,))
+    else:
+        q, k, v_pad = _mla_heads(*args, qk_head)
     out = flash_attention(q, k, v_pad, causal=True, scale=qk_head ** -0.5,
                           mode=kernel_mode)[..., :m.v_head_dim]
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _mla_heads(q_nope, q_rope, k_nope, k_rope, v, width: int):
+    """flash_attention's per-head (q, k, v) at head dim ``width``: the
+    rope parts beside the nope ones, the one shared k_rope head (B, S, 1,
+    rope) repeated over the heads there are, v zero-padded (by a
+    concatenation: PyTorch 2.11's DTensor rule for ``F.pad`` breaks
+    placements)."""
+    H = q_nope.shape[2]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(-1, -1, H, -1)], dim=-1)
+    pad = v.new_zeros(v.shape[:-1] + (width - v.shape[-1],))
+    return q, k, torch.cat([v, pad], dim=-1)
+
+
+# q_nope, q_rope, k_nope, k_rope (B, S, 1, rope), v -> q, k, v: a rank's
+# lanes and heads, the shared k_rope head whole under the head split
+MLA_HEADS_RULE = ShardRule("mla_heads",
+                           {"batch": (0, 0, 0, 0, 0),
+                            "heads": (2, 2, 2, None, 2)},
+                           {"batch": (0, 0, 0), "heads": (2, 2, 2)})
 
 
 def mla_cache_spec(arch: ArchConfig, batch: int, max_len: int,
@@ -269,8 +290,11 @@ def mla_decode(p: Dict[str, Any], x: torch.Tensor,
     The new [c_kv; roped k_rope] entry lands at lane 0's slot (clamped to
     the buffer's end), as in ``gqa_decode``. Scores, softmax and mix are
     float32 whatever the cache's dtype, as the reference's
-    ``preferred_element_type``; the reference's sharding hint on the
-    (B, H, S) scores has no counterpart on one card."""
+    ``preferred_element_type``. On DTensors the write and the attention
+    run on each rank's blocks (``MLA_DECODE_RULE``): its lanes, or its
+    heads of ``wk_b``/``wv_b`` over the whole latent cache, which keeps
+    the scores split by head as the reference's sharding hint does; the
+    product with ``wo`` sums the heads' parts."""
     m = arch.mla
     r = m.kv_lora_rank
     q_nope, q_rope = _mla_queries(p, x, arch)        # (B, 1, H, *)
@@ -278,23 +302,46 @@ def mla_decode(p: Dict[str, Any], x: torch.Tensor,
     pos = cache_len[:, None]
     q_rope = apply_rope(q_rope, pos, arch.rope_theta)
     kr_new = apply_rope(kr_new[..., None, :], pos, arch.rope_theta)[..., 0, :]
-    latent = cache["latent"]
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    args = (q_nope, q_rope, torch.cat([c_new, kr_new], dim=-1),
+            cache["latent"], cache_len, p["wk_b"], p["wv_b"])
+    if is_sharded(*args):
+        # the rule's placements are the cache plan's: each rank writes
+        # into its own block of the latent cache, in place as below
+        out, _ = on_shards(_mla_attend, MLA_DECODE_RULE, args, (r, scale))
+    else:
+        out, _ = _mla_attend(*args, r, scale)
+    y = torch.einsum("bhk,hkd->bd", out, p["wo"].float())
+    return y[:, None, :].to(x.dtype), cache
+
+
+def _mla_attend(q_nope, q_rope, entry, latent, cache_len, wk_b, wv_b,
+                r: int, scale: float):
+    """The new latent ``entry`` written into the buffer in place at lane
+    0's slot (clamped to its end), then the absorbed one-token attention
+    over it: (out (B, H, v_head_dim) float32, the buffer)."""
     idx = cache_len[:1].long().clamp(max=latent.shape[1] - 1)
-    latent.index_copy_(1, idx, torch.cat([c_new, kr_new], dim=-1).to(
-        latent.dtype))
+    latent.index_copy_(1, idx, entry.to(latent.dtype))
     c_kv = latent[..., :r].float()                   # (B, S, r)
     k_rope = latent[..., r:].float()                 # (B, S, rope)
     # wk_b absorbed into q: q_lat (B, H, r)
-    q_lat = torch.einsum("bshk,rhk->bhr", q_nope, p["wk_b"])
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    q_lat = torch.einsum("bshk,rhk->bhr", q_nope, wk_b)
     s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c_kv)
          + torch.einsum("bshk,btk->bhst", q_rope.float(), k_rope)[:, :, 0]
          ) * scale
-    tpos = torch.arange(latent.shape[1], device=x.device)
+    tpos = torch.arange(latent.shape[1], device=latent.device)
     valid = tpos[None, :] < (cache_len + 1)[:, None]
     s = torch.where(valid[:, None, :], s, -1e30)
     attn = torch.softmax(s, dim=-1)
     out_lat = torch.einsum("bhs,bsr->bhr", attn, c_kv)
-    out = torch.einsum("bhr,rhk->bhk", out_lat, p["wv_b"].float())
-    y = torch.einsum("bhk,hkd->bd", out, p["wo"].float())
-    return y[:, None, :].to(x.dtype), cache
+    return torch.einsum("bhr,rhk->bhk", out_lat, wv_b.float()), latent
+
+
+# q_nope, q_rope (B, 1, H, *), the new entry (B, 1, r + rope), the latent
+# cache (B, Smax, r + rope), the lengths (B,), wk_b, wv_b (r, H, *) ->
+# out (B, H, v_head_dim), the cache: a rank's lanes (the cache's plan:
+# batch over data), or its heads with the whole latent cache
+MLA_DECODE_RULE = ShardRule("mla_decode",
+                            {"batch": (0, 0, 0, 0, 0, None, None),
+                             "heads": (2, 2, None, None, None, 1, 1)},
+                            {"batch": (0, 0), "heads": (1, None)})

@@ -32,13 +32,18 @@ axes, as the reference's.
 ``tp`` pads head counts, vocab and FFN widths as the reference pads them
 for tensor parallelism over that many ranks (``PaddedDims.for_tp``), so
 that the schema, and ``launch.sharding_plan``'s specs over it, are the
-reference's. With ``moe_mesh`` (a ``core.vmesh.VirtualMesh`` of n
-shards) each MoE layer of a full-sequence pass is the reference's
-sequence-parallel ``shard_map`` dispatch: its tokens split into n
-sequence blocks, shard i takes block i and a view of experts
-[i E/n, (i + 1) E/n), ``moe.moe_forward_sharded`` runs on the mesh, the
-blocks are put back together and the shared experts are added outside.
-Decode keeps the one-device dispatch, as the reference's.
+reference's. With ``moe_mesh`` each MoE layer of a full-sequence pass is
+the reference's sequence-parallel ``shard_map`` dispatch, the shared
+experts added outside it. On a ``core.vmesh.VirtualMesh`` of n shards the
+tokens split into n sequence blocks, shard i takes block i and a view of
+experts [i E/n, (i + 1) E/n), ``moe.moe_forward_sharded`` runs on the
+mesh and the blocks are put back together. On DTensor parameters
+``moe_mesh`` is their ``DeviceMesh`` and ``expert_axes`` the mesh axes the
+experts split over (the reference's): with ``sequence_parallel`` the
+normed stream enters the dispatch in ``sp_spec``, every token on one
+rank, and ``moe.moe_forward_dtensor`` runs it on each rank's blocks.
+Decode keeps the one-device dispatch, as the reference's (on DTensors
+with the expert weights where they lie).
 
 On DTensor parameters (the sharded step, ``launch.sharding_plan.
 distribute``) the same code runs sharded: ``sequence_parallel`` and
@@ -50,8 +55,7 @@ do nothing. Where the reference leaves GSPMD to gather the split stream
 for a block's products, the port gathers each normed stream to
 ``act_spec`` itself (``mix_spec``). The entry points run under DTensor's
 implicit replication, so that the positions, masks and scalars each rank
-makes stand for replicated tensors. The MoE layers' sharded dispatch is
-not on this route: ``moe_mesh`` is the virtual mesh's.
+makes stand for replicated tensors.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ from repro_torch.core.config import (ArchConfig, AttentionKind, PaddedDims,
                                      RopeKind, pad_to, resolve_device)
 from repro_torch.core.params import ParamDef, init_params, pdef
 from repro_torch.core.partitioning import MeshSpec, P, placements
+from repro_torch.core.vmesh import VirtualMesh
 from repro_torch.kernels.common import is_sharded, replicating
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -177,7 +182,7 @@ class LMModel:
                  data_axes: Tuple[str, ...] = ("data",),
                  kernel_mode: Optional[str] = None,
                  remat: str = "block",
-                 moe_mesh=None,
+                 moe_mesh=None, expert_axes: Tuple[str, ...] = ("model",),
                  cache_dtype: torch.dtype = torch.bfloat16,
                  device: Union[None, str, torch.device] = None):
         if arch.family not in FAMILIES:
@@ -190,6 +195,7 @@ class LMModel:
         self.tp = tp
         self.padded = PaddedDims.for_tp(arch, tp)
         self.moe_mesh = moe_mesh
+        self.expert_axes = tuple(expert_axes)
         self.kernel_mode = kernel_mode
         self.cache_dtype = cache_dtype
         self.device = resolve_device(device)
@@ -352,19 +358,40 @@ class LMModel:
                                        positions=positions, window=window,
                                        kernel_mode=self.kernel_mode)
         x = _constrain(x + _constrain(mix, self.sp_spec), self.sp_spec)
-        h = _constrain(rms_norm(x, p["ln2"], arch.norm_eps), self.mix_spec)
+        h = rms_norm(x, p["ln2"], arch.norm_eps)
+        if kind == "moe":
+            y, aux = self._moe(p["moe"], h)
+            return _constrain(x + _constrain(y, self.sp_spec),
+                              self.sp_spec), aux
+        h = _constrain(h, self.mix_spec)
         if kind == "rwkv":
             y = rwkv_mod.channel_mix_forward(p["tm"], h)
-        elif kind == "moe":
-            if self.moe_mesh is not None:
-                y, aux = self._moe_sharded(p["moe"], h)
-            else:
-                y, aux = moe_mod.moe_forward(p["moe"], h, arch)
         else:
             y = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                        p["mlp"]["w_down"], arch.act)
         # the block's output too: the residual that remat keeps stays split
         return _constrain(x + _constrain(y, self.sp_spec), self.sp_spec), aux
+
+    def _moe(self, p: Dict[str, Any], h: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An MoE layer's FFN on the normed stream ``h``: the sharded
+        dispatch on ``moe_mesh`` (a virtual mesh; on DTensors with
+        sequence parallelism, their ``DeviceMesh``), else the one-device
+        one."""
+        arch = self.arch
+        if isinstance(self.moe_mesh, VirtualMesh):
+            return self._moe_sharded(p, h)
+        if self.moe_mesh is not None and not is_sharded(h):
+            raise ValueError("moe_mesh is a DeviceMesh: the parameters "
+                             "must be DTensors on it")
+        if self.moe_mesh is None or self.sp_spec is None:
+            return moe_mod.moe_forward(p, _constrain(h, self.mix_spec), arch)
+        y, aux = moe_mod.moe_forward_dtensor(p, _constrain(h, self.sp_spec),
+                                             arch, self.expert_axes)
+        if arch.moe.n_shared_experts:
+            y = y + _constrain(moe_mod.shared_expert_forward(
+                p, _constrain(h, self.mix_spec), arch), self.sp_spec)
+        return y, aux
 
     def _moe_sharded(self, p: Dict[str, Any], h: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -590,6 +617,9 @@ class LMModel:
     # ------------------------------------------------------------------
     def _block_decode(self, kind: str, p, x, cache, cache_len):
         arch = self.arch
+        # on DTensors a layer's sums may leave the stream partial; whole,
+        # the projections split by head as the cache does
+        x = _constrain(x, self.act_spec)
         h = rms_norm(x, p["ln1"], arch.norm_eps)
         if kind == "rwkv":
             mix, cache = rwkv_mod.time_mix_decode(p["tm"], h, cache, arch)

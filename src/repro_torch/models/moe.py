@@ -11,9 +11,16 @@ is the order the reference's sorted scatter-add applies them. No float
 atomics: two runs of the same inputs give the same bits.
 
 ``moe_forward_sharded`` is the reference's expert-parallel path (the
-paper's INTERLEAVE policy applied to experts) written for one shard of a
-``core.vmesh.VirtualMesh``: the shard owns E/n experts and routes its
-resident tokens with a dense all-to-all over the communicator.
+paper's INTERLEAVE policy applied to experts) written for one shard: the
+shard owns E/n experts and routes its resident tokens with a dense
+all-to-all over the communicator, a ``core.vmesh`` shard's or, on the
+sharded step's DTensors, a ``core.dist.MeshCommunicator`` over the expert
+axes of the ``DeviceMesh`` (``moe_forward_dtensor``, the body run on each
+rank's local blocks through ``local_map``, as the reference's
+``shard_map``). On DTensors ``moe_forward`` (the one-device dispatch, as
+decode runs it) keeps the expert weights where they lie: every rank
+routes the whole (replicated) tokens, runs its own experts' rows of the
+(E, C, d) buffer and gathers the results of the expert group.
 
 Aux losses follow the standard load-balancing formulation
 (mean_prob_per_expert x token_fraction_per_expert x E).
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ArchConfig, MoEConfig
 from repro_torch.core.params import pdef
+from repro_torch.kernels.common import is_sharded
 from repro_torch.models.layers import activation
 
 
@@ -124,10 +132,28 @@ def _combine(rows: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor,
     return out
 
 
+def _expert_ffn(hidden: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                wd: torch.Tensor, arch: ArchConfig) -> torch.Tensor:
+    """The grouped expert FFN over an (E, C, d) buffer: three bmm."""
+    f = activation(arch.act)
+    return torch.bmm(f(torch.bmm(hidden, wg)) * torch.bmm(hidden, wu), wd)
+
+
 def moe_forward(p: Dict[str, Any], x: torch.Tensor, arch: ArchConfig, *,
                 capacity: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss)."""
+    """x: (B, S, d) -> (out, aux_loss). On DTensors the expert weights stay
+    in their placement (``_moe_on_expert_blocks``)."""
+    if is_sharded(x, p["w_gate"]):
+        return _moe_on_expert_blocks(p, x, arch, capacity)
+    return _moe_forward(p, x, arch, capacity)
+
+
+def _moe_forward(p: Dict[str, Any], x: torch.Tensor, arch: ArchConfig,
+                 capacity: Optional[int], experts=None, shared: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_forward`` on plain tensors; ``experts`` maps the (E, C, d)
+    buffer to the experts' outputs (default: every expert here)."""
     m = arch.moe
     B, S, d = x.shape
     T = B * S
@@ -150,23 +176,74 @@ def moe_forward(p: Dict[str, Any], x: torch.Tensor, arch: ArchConfig, *,
     hidden = buf[:-1].view(E, C, d)
 
     # the grouped expert FFN
-    f = activation(arch.act)
-    h = f(torch.bmm(hidden, p["w_gate"])) * torch.bmm(hidden, p["w_up"])
-    y_exp = torch.bmm(h, p["w_down"]).reshape(E * C, d)
+    if experts is None:
+        y_exp = _expert_ffn(hidden, p["w_gate"], p["w_up"], p["w_down"], arch)
+    else:
+        y_exp = experts(hidden)
+    y_exp = y_exp.reshape(E * C, d)
     rows = torch.cat([y_exp, y_exp.new_zeros((1, d))])
 
     out = _combine(rows, slot, sg * keep, order, T, K)
-    if m.n_shared_experts:
+    if m.n_shared_experts and shared:
         out = out + shared_expert_forward(p, xt, arch)
     return out.reshape(B, S, d), aux
+
+
+def _expert_axes(w) -> Tuple[str, ...]:
+    """The mesh axes that split the DTensor ``w`` along its experts."""
+    names = w.device_mesh.mesh_dim_names
+    return tuple(a for a, pl in zip(names, w.placements)
+                 if pl.is_shard() and pl.dim == 0)
+
+
+def _moe_on_expert_blocks(p: Dict[str, Any], x: torch.Tensor,
+                          arch: ArchConfig, capacity: Optional[int]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-device dispatch on DTensors, the expert weights where they
+    lie (split over the expert axes): every rank routes the tokens,
+    gathered whole, into the (E, C, d) buffer, runs the rows of its own
+    E/n experts, and the expert group's results are gathered in expert
+    order before the combine; the shared experts are added after it, on
+    DTensors. Outputs replicated. No gradient flows through the gather:
+    a pass that takes one (a train step) takes the expert-parallel
+    dispatch (``LMModel``'s ``moe_mesh`` with sequence parallelism)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core.dist import MeshCommunicator
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *p.values())):
+        raise NotImplementedError(
+            "the one-device MoE dispatch on DTensors takes no gradient: "
+            "give LMModel moe_mesh and sequence_parallel")
+    w = p["w_gate"]
+    mesh = w.device_mesh
+    comm = MeshCommunicator(mesh, _expert_axes(w))
+    el = arch.moe.n_experts // comm.n
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    wpl = tuple(w.placements)
+
+    def body(router, wg, wu, wd, xb):
+        def experts(hidden):
+            mine = hidden[comm.rank * el:(comm.rank + 1) * el]
+            return comm.all_gather(_expert_ffn(mine, wg, wu, wd, arch))
+        return _moe_forward({"router": router}, xb, arch, capacity,
+                            experts=experts, shared=False)
+    out, aux = local_map(body, out_placements=(rep, rep),
+                         in_placements=(rep, wpl, wpl, wpl, rep),
+                         device_mesh=mesh, redistribute_inputs=True)(
+        p["router"], p["w_gate"], p["w_up"], p["w_down"], x)
+    if arch.moe.n_shared_experts:
+        out = out + shared_expert_forward(p, x, arch)
+    return out, aux
 
 
 def moe_forward_sharded(comm, p: Dict[str, Any], x: torch.Tensor,
                         arch: ArchConfig
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expert-parallel MoE on one shard of a virtual mesh: the reference's
-    ``moe_forward_sharded`` body with ``comm`` (a ``core.vmesh``
-    communicator) for its collectives.
+    """Expert-parallel MoE on one shard: the reference's
+    ``moe_forward_sharded`` body with ``comm`` (a ``core.vmesh`` or
+    ``core.dist`` communicator) for its collectives.
 
     ``x`` (B_loc, S_loc, d) is this shard's resident tokens (the sequence-
     sharded layout: every token lives on one shard); ``p`` holds the
@@ -175,10 +252,13 @@ def moe_forward_sharded(comm, p: Dict[str, Any], x: torch.Tensor,
     Each assignment goes to its expert's owner through a dense (n, cap)
     all-to-all, cap = T_loc * K / n * capacity_factor rounded up to 8 (not
     ``_capacity``); an owner's assignments past cap are dropped. The owner
-    runs each local expert on the rows that arrived for it, and a second
-    all-to-all brings the results back. The aux loss is the global one:
-    its two means are averaged over the mesh. Shared experts are not
-    applied here (the reference adds them outside). Returns (out, aux).
+    runs each local expert on the rows that arrived for it (an owner of
+    one expert runs it on the whole receive buffer, whose padding rows
+    are zero: no shape there depends on the routing, so that a trace on
+    fake tensors follows it), and a second all-to-all brings the results
+    back. The aux loss is the global one: its two means are averaged over
+    the mesh (``comm.pmean``). Shared experts are not applied here (the
+    reference adds them outside). Returns (out, aux).
     """
     m = arch.moe
     E, K, n = m.n_experts, m.top_k, comm.n
@@ -194,8 +274,8 @@ def moe_forward_sharded(comm, p: Dict[str, Any], x: torch.Tensor,
     f = activation(arch.act)
 
     probs, gates, ids = _route(xt, p["router"], K)
-    me = comm.psum(probs.mean(0)) / n
-    ce = comm.psum(_token_fraction(ids, E, K)) / n
+    me = comm.pmean(probs.mean(0))
+    ce = comm.pmean(_token_fraction(ids, E, K))
     aux = (me * ce).sum() * E * m.router_aux_weight
 
     # route each assignment to the shard that owns its expert
@@ -214,12 +294,15 @@ def moe_forward_sharded(comm, p: Dict[str, Any], x: torch.Tensor,
     re = comm.all_to_all(send_e).reshape(n * cap)
 
     # each local expert on the rows that arrived for it
-    y = torch.zeros_like(rx)
-    for le in range(e_local):
-        rows = torch.nonzero(re == le).squeeze(1)
-        xin = rx[rows]
-        h = f(xin @ p["w_gate"][le]) * (xin @ p["w_up"][le])
-        y = y.index_put((rows,), h @ p["w_down"][le])
+    if e_local == 1:
+        y = (f(rx @ p["w_gate"][0]) * (rx @ p["w_up"][0])) @ p["w_down"][0]
+    else:
+        y = torch.zeros_like(rx)
+        for le in range(e_local):
+            rows = torch.nonzero(re == le).squeeze(1)
+            xin = rx[rows]
+            h = f(xin @ p["w_gate"][le]) * (xin @ p["w_up"][le])
+            y = y.index_put((rows,), h @ p["w_down"][le])
 
     # back to the tokens' shards, then each token's K in sorted order
     back = comm.all_to_all(y.view(n, cap, d)).reshape(n * cap, d)
@@ -228,3 +311,49 @@ def moe_forward_sharded(comm, p: Dict[str, Any], x: torch.Tensor,
     rows = torch.cat([back, back.new_zeros((1, d))])
     out = _combine(rows, slot, sg * keep, order, T, K)
     return out.reshape(Bl, Sl, d), aux
+
+
+def moe_forward_dtensor(p: Dict[str, Any], x: torch.Tensor,
+                        arch: ArchConfig, expert_axes: Tuple[str, ...]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_forward_sharded`` on the sharded step's DTensors: the body on
+    each rank's local blocks (``local_map``, the reference's ``shard_map``
+    with in_specs (P(), P(axes) x 3, token_spec) and out_specs
+    (token_spec, P())), over a ``core.dist.MeshCommunicator`` of
+    ``expert_axes``. ``x`` (B, S, d) must split its tokens over every
+    expert axis of more than one rank (the sequence-parallel layout), so
+    that each token lives on one rank of the expert group; ``router`` is
+    replicated, ``w_gate``/``w_up``/``w_down`` split along their experts
+    over the expert axes (redistributed there if they lie otherwise).
+    Returns (out in x's placements, aux replicated). A weight's gradient
+    is a partial sum over each axis that splits the tokens but not the
+    weight."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core.dist import MeshCommunicator
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    comm = MeshCommunicator(mesh, expert_axes)
+    xpl = tuple(x.placements)
+    whole = [a for a in comm.axes if not xpl[names.index(a)].is_shard()]
+    if whole:
+        raise ValueError(f"the tokens are not split over expert axes "
+                         f"{whole}: each must live on one rank")
+    rep = tuple(Replicate() for _ in names)
+    wpl = tuple(Shard(0) if a in comm.axes else Replicate() for a in names)
+
+    def grads(pl):
+        return tuple(q if q.is_shard() else
+                     (Partial() if t.is_shard() else Replicate())
+                     for q, t in zip(pl, xpl))
+
+    def body(router, wg, wu, wd, xb):
+        return moe_forward_sharded(comm, {"router": router, "w_gate": wg,
+                                          "w_up": wu, "w_down": wd}, xb, arch)
+    return local_map(body, out_placements=(xpl, rep),
+                     in_placements=(rep, wpl, wpl, wpl, xpl),
+                     in_grad_placements=(grads(rep), grads(wpl), grads(wpl),
+                                         grads(wpl), xpl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        p["router"], p["w_gate"], p["w_up"], p["w_down"], x)

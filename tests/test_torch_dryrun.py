@@ -523,20 +523,40 @@ def test_cli_traces_a_train_cell_with_no_card_and_no_allocation(tmp_path):
         "recurrentgemma-2b"].active_param_count() * 256 * 4096
 
 
-def test_moe_cells_keep_null_pod_fields_naming_item_16b():
-    """The MoE families' sharded dispatch is not ported: on a pod mesh
-    their temporaries, ``fits`` and collective bytes stay null, each with
-    a note naming ROADMAP item 16b (a reduced config at the kernels'
-    widths, traced whole)."""
-    arch = dataclasses.replace(REDUCED["phi3.5-moe"], head_dim=64)
-    shape = config.ShapeConfig("s", config.StepKind.PREFILL, 16, 16)
-    rep = dryrun.run_cell(arch, shape, multi_pod=False, verbose=False,
+# (arch, experts): one expert a rank of each pod mesh's expert group,
+# "model" for phi3.5-moe, ("data", "model") for deepseek-v3
+POD_MOE = [("phi3.5-moe", 16), ("deepseek-v3", 256)]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("name,n_experts", POD_MOE,
+                         ids=[n for n, _ in POD_MOE])
+def test_moe_cells_report_their_pod_fields(name, n_experts, multi_pod):
+    """On both pod meshes the MoE families' sharded step is traced like
+    every other's (a reduced config at the kernels' widths, one expert a
+    rank, a prefill): temporaries, ``fits`` and collective bytes, the
+    dispatch's all-to-alls among them, three an MoE layer (the tokens,
+    their experts, the results back)."""
+    from _dryrun_ref import kernel_widths
+    arch = kernel_widths(REDUCED[name], config)
+    arch = dataclasses.replace(arch, moe=dataclasses.replace(
+        arch.moe, n_experts=n_experts))
+    shape = config.ShapeConfig("s", config.StepKind.PREFILL, 16, 32)
+    rep = dryrun.run_cell(arch, shape, multi_pod=multi_pod, verbose=False,
                           **dryrun.H100_SXM)
-    assert rep["status"] == "ok" and rep["mesh"] == "16x16"
-    assert rep["temp_bytes_per_device"] is None and rep["fits"] is None
-    assert rep["collective_wire_bytes_per_device"] is None
-    assert rep["collective_operand_bytes_per_device"] is None
-    assert rep["roofline"]["collective_s"] is None
-    for note in ("temp_bytes_note", "collectives_note"):
-        assert "ROADMAP item 16b" in rep[note]
+    assert rep["status"] == "ok"
+    assert rep["mesh"] == ("2x16x16" if multi_pod else "16x16")
+    assert rep["temp_bytes_per_device"] > 0
+    assert rep["bytes_per_device"] == (
+        rep["argument_bytes_per_device"]["total"]
+        + rep["temp_bytes_per_device"])
+    assert rep["fits"] == (rep["bytes_per_device"] < rep["device_memory"])
+    assert rep["collective_wire_bytes_per_device"] > 0
+    assert rep["collective_operand_bytes_per_device"] > 0
+    assert rep["roofline"]["collective_s"] > 0
+    n_moe = arch.n_layers - arch.moe.n_dense_layers
+    assert rep["collectives"]["all-to-all"]["count"] == 3 * n_moe
+    assert rep["collectives"]["all-to-all"]["wire_bytes"] > 0
+    assert not any(k.endswith("_note") for k in rep)
     assert rep["flops"] > 0

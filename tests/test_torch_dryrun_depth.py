@@ -9,12 +9,16 @@ to a real CPU run of the same step under the same counters
 (``dryrun.trace``): FLOPs, the peak above the arguments and the outputs
 equal.
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from _dryrun_ref import cell_shape, real_like, reduced_pair
 from repro_torch.configs import ARCHS
 from repro_torch.core.config import StepKind
+from repro_torch.core.partitioning import MeshSpec
 from repro_torch.launch import dryrun
 from repro_torch.launch.sharding_plan import batch_specs
 from repro_torch.models.lm import LMModel
@@ -62,8 +66,10 @@ def test_depth_extrapolation_equals_the_full_depth_trace(name, replace,
 
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "deepseek-v3"])
 def test_calibration_refuses_a_stack_of_mixed_layers(name):
-    """A hybrid pattern, or dense layers before the MoE ones: not a stack
-    of identical layers, so traced at full depth."""
+    """A hybrid pattern, or dense layers before fewer MoE layers than the
+    calibration's first trace holds (reduced deepseek-v3: 3 dense, 1 MoE):
+    no stack of identical layers to extrapolate, so traced at full
+    depth."""
     arch, _ = reduced_pair(name)
     shape = cell_shape(StepKind.PREFILL, 8, 8)
     with pytest.raises(ValueError, match="identical layers"):
@@ -72,11 +78,40 @@ def test_calibration_refuses_a_stack_of_mixed_layers(name):
 
 
 def test_needs_calibration_only_where_a_plain_scan_steps_by_token():
+    """And, for rank 0's sharded trace, for an MoE stack with leading
+    dense layers deeper than its calibration traces (deepseek-v3; not its
+    reduced config, 3 dense and 1 MoE layer)."""
     shapes = {k: cell_shape(k, 8, 8) for k in KINDS}
     for name, arch in ARCHS.items():
         for kind, shape in shapes.items():
             want = arch.family == "ssm" and kind == StepKind.TRAIN
             assert dryrun.needs_calibration(arch, shape) == want
+            assert dryrun.needs_calibration(arch, shape, sharded=True) == (
+                want or name == "deepseek-v3")
+    arch, _ = reduced_pair("deepseek-v3")
+    assert not dryrun.needs_calibration(arch, shapes[StepKind.TRAIN],
+                                        sharded=True)
+
+
+def test_sharded_moe_calibration_equals_the_full_depth_trace():
+    """Rank 0's sharded trace of reduced deepseek-v3 at 3 dense and 4 MoE
+    layers on a (2, 2) mesh (experts over both axes), extrapolated from 5
+    and 6 layers: bytes and every collective kind's count and bytes equal
+    the full-depth trace's; the step peak, not additive, within 10% (the
+    dry run's limit on the card)."""
+    arch, _ = reduced_pair("deepseek-v3", n_layers=7)
+    shape = cell_shape(StepKind.TRAIN, 8, 4)
+    cfg = dataclasses.replace(dryrun.cell_config(arch, shape, accum=1),
+                              param_dtype="float32")
+    mesh = MeshSpec(("data", "model"), (2, 2), np.arange(4).reshape(2, 2))
+    assert dryrun.calibration_depths(arch) == (5, 6)
+    full = dryrun.trace_cell(arch, shape, mesh, cfg, sharded=True)
+    cal = dryrun.calibrate_costs(arch, shape, mesh, cfg, sharded=True)
+    assert cal["bytes"] == full["bytes"]
+    assert cal["collectives"] == full["collectives"]
+    assert full["collectives"]["all-to-all"]["count"] > 0
+    assert abs(cal["step_peak_bytes"] - full["step_peak_bytes"]) <= \
+        0.10 * full["step_peak_bytes"]
 
 
 # ---------------------------------------------------------------------------

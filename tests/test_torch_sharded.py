@@ -1,7 +1,8 @@
 """The port's sharded step (DTensor) against the plan and the reference.
 
-- Placements: for every non-skipped (arch, shape) cell of the families
-  whose sharded step is ported, on the (2, 2), (4, 2) and (2, 2, 2)
+- Placements: for every non-skipped (arch, shape) cell of every family
+  (the MoE ones' experts over "model", or ("data", "model") for
+  deepseek-v3), on the (2, 2), (4, 2) and (2, 2, 2)
   meshes under the tp and fsdp strategies, every parameter, opt-state
   leaf, batch entry and cache entry that ``sharding_plan.distribute``
   places has rank 0's block of ``dryrun.shard_shape`` (which
@@ -62,7 +63,7 @@ GLOO_JOIN_S = 600
 
 FAMILIES = ("qwen2-0.5b", "qwen3-1.7b", "granite-3-8b", "yi-34b",
             "recurrentgemma-2b", "rwkv6-7b", "qwen2-vl-2b",
-            "musicgen-large")
+            "musicgen-large", "phi3.5-moe", "deepseek-v3")
 CELLS = [(a, s) for a in FAMILIES for s in sorted(config.LM_SHAPES)
          if dryrun.skip_reason(ARCHS[a], config.LM_SHAPES[s]) is None]
 MESHES = {"2x2": (("data", "model"), (2, 2)),
@@ -91,9 +92,37 @@ def _leaves(tree, shardings):
 
 
 def test_every_ported_family_is_a_sharded_cell_and_moe_is_not():
-    assert all(dryrun.is_sharded_cell(ARCHS[a]) for a in FAMILIES)
-    assert not any(dryrun.is_sharded_cell(ARCHS[a])
-                   for a in ("phi3.5-moe", "deepseek-v3"))
+    """Every family's sharded step is built, the MoE ones' with their
+    expert-parallel dispatch (it was not ported before, hence the name):
+    on a (2, 2) fake group ``build_cell`` gives an MoE model of a
+    full-sequence cell under sequence parallelism the mesh as
+    ``moe_mesh``, its experts over ("data", "model") with
+    ``expert_parallel_data`` (deepseek-v3) and over "model" otherwise, as
+    the reference's dry run does; a decode and every other family keep
+    none."""
+    mesh = mesh_of("2x2")
+    for name in FAMILIES:
+        arch = ARCHS[name]
+        for shape_name in ("train_4k", "decode_32k"):
+            shape = config.LM_SHAPES[shape_name]
+            if dryrun.skip_reason(arch, shape) is not None:
+                continue
+            cfg = dryrun.cell_config(arch, shape)
+            with dryrun.fake_group(4):
+                dm = device_mesh(mesh, "cpu")
+                with dryrun.fake_card():
+                    model, _, _ = dryrun.build_cell(arch, shape, mesh, cfg,
+                                                    dmesh=dm)
+            sharded_moe = (arch.moe is not None
+                           and shape.kind != config.StepKind.DECODE)
+            assert (arch.moe is not None) == (
+                name in ("phi3.5-moe", "deepseek-v3"))
+            assert cfg.sharding.sequence_parallel or not sharded_moe
+            assert model.moe_mesh is (dm if sharded_moe else None), name
+            if sharded_moe:
+                assert model.expert_axes == (
+                    ("data", "model") if name == "deepseek-v3"
+                    else ("model",))
 
 
 # ---------------------------------------------------------------------------
