@@ -13,7 +13,9 @@ exits non-zero if any contract is broken:
   3. every completed request's phase attribution (queue_wait/batch_wait/
      retry_backoff/execute/merge) sums to <= its wall latency, and
      ServiceStats reports a populated per-class p99 decomposition;
-  4. every injected fault produced a NON-EMPTY flight-recorder dump;
+  4. every injected fault produced a NON-EMPTY flight-recorder dump; a
+     fault of one request (build failure, wait poison) holds that
+     request's spans, and no dump holds an operator span;
   5. zero-cost-when-disabled: an identical untraced round allocates NO
      spans (``Tracer.created`` unchanged), and flipping the tracing flag
      does not change the plan-cache key (no re-lowering).
@@ -182,6 +184,25 @@ def main(argv=None) -> int:
     empty = [d.reason for d in fault_dumps if not d.spans]
     if empty:
         print(f"trace_gate_torch: FAIL — EMPTY flight dumps for {empty}")
+        return 1
+    # a request's fault: its dump holds that request's serving spans (the
+    # dispatch.build it tripped in, open), and no operator span crowds
+    # them out of the window
+    for d in fault_dumps:
+        rid = d.args.get("trace_id")
+        if d.reason == "fault.pool_kill":
+            continue
+        mine = [s.name for s in d.spans if s.trace_id == rid]
+        if rid is None or rid < 0 or "dispatch.build" not in mine:
+            print(f"trace_gate_torch: FAIL — {d.reason} dump lacks the "
+                  f"faulted request's spans (request {rid}, its spans "
+                  f"{mine})")
+            return 1
+    walk = [d.reason for d in dumps
+            if any(s.cat in ("op", "sync") for s in d.spans)]
+    if walk:
+        print(f"trace_gate_torch: FAIL — operator spans in flight dumps "
+              f"{walk}")
         return 1
     print(f"trace_gate_torch: flight recorder OK "
           f"({[d.reason for d in fault_dumps]}, "

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analytics import tracing
 from repro_torch.analytics.columnar import (segment_median, segment_sum,
                                             stacked_group_sums)
 
@@ -28,8 +29,9 @@ from repro_torch.analytics.columnar import (segment_median, segment_sum,
 def count_direct(keys: torch.Tensor, cardinality: int) -> torch.Tensor:
     """SELECT groupkey, COUNT(*) GROUP BY groupkey: (cardinality,) f32
     counts; keys outside [0, cardinality) are dropped."""
-    return segment_sum(torch.ones_like(keys, dtype=torch.float32), keys,
-                       cardinality)
+    with tracing.span("count_direct", "op"):
+        return segment_sum(torch.ones_like(keys, dtype=torch.float32), keys,
+                           cardinality)
 
 
 def count_partitioned(keys: torch.Tensor, cardinality: int, *,
@@ -42,14 +44,16 @@ def count_partitioned(keys: torch.Tensor, cardinality: int, *,
     (key % range) collision-free, so the result is exact whenever no
     partition overflows its capacity; the overflow is returned, never
     dropped silently. A COUNT is a fused sweep over one all-ones column.
-    Returns ((cardinality,) f32 counts, int32 overflow)."""
-    clipped = torch.clamp(keys, 0, cardinality - 1).to(torch.int32)
-    ones = torch.ones(keys.shape + (1,), dtype=torch.float32,
-                      device=keys.device)
-    sums, overflow = stacked_group_sums(
-        clipped, ones, cardinality, layout="partitioned", mode=mode,
-        n_partitions=n_partitions, capacity_factor=capacity_factor)
-    return sums[:, 0], overflow
+    Returns ((cardinality,) f32 counts, int32 overflow). Its phases are
+    the partitioned layout's spans (``columnar._fused_partitioned``)."""
+    with tracing.span("count_partitioned", "op"):
+        clipped = torch.clamp(keys, 0, cardinality - 1).to(torch.int32)
+        ones = torch.ones(keys.shape + (1,), dtype=torch.float32,
+                          device=keys.device)
+        sums, overflow = stacked_group_sums(
+            clipped, ones, cardinality, layout="partitioned", mode=mode,
+            n_partitions=n_partitions, capacity_factor=capacity_factor)
+        return sums[:, 0], overflow
 
 
 # ---------------------------------------------------------------------------
@@ -63,8 +67,10 @@ def median_direct(keys: torch.Tensor, vals: torch.Tensor,
     The reference takes each run's start as an f32 cumsum of f32 counts,
     exact only below 2^24 rows; here counts and starts are int64
     (``columnar._segment_selection``), so the two agree wherever the
-    reference is exact and the port stays exact past it."""
-    return segment_median(keys, vals.to(torch.float32), cardinality)[0]
+    reference is exact and the port stays exact past it. Its phases are
+    the selection's spans (``columnar.segment_median``)."""
+    with tracing.span("median_direct", "op"):
+        return segment_median(keys, vals.to(torch.float32), cardinality)[0]
 
 
 # The reference jits median_direct under this name; the port runs eagerly.

@@ -35,6 +35,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.analytics import tracing
 from repro_torch.analytics.hashing import pad_partitions, partition_of
 from repro_torch.analytics.plan import is_holistic, parse_quantile
 from repro_torch.kernels.hash_aggregate import hash_aggregate_multi
@@ -165,8 +166,11 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
         sorted_ids, torch.arange(n + 2, dtype=itype, device=ids.device))
     width = math.prod(data.shape[1:])
     rows = take_rows(data.reshape(data.shape[0], width), order)
-    if (data.shape[0] <= SERIAL_SEGMENT_ROWS
-            or int(torch.diff(offsets).max()) <= SERIAL_SEGMENT_ROWS):
+    serial = data.shape[0] <= SERIAL_SEGMENT_ROWS
+    if not serial:
+        with tracing.span("sync:segment_sum.longest", "sync"):
+            serial = int(torch.diff(offsets).max()) <= SERIAL_SEGMENT_ROWS
+    if serial:
         out = torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
                                    unsafe=True)
     else:
@@ -353,21 +357,24 @@ def _segment_selection(keys: torch.Tensor, vals: torch.Tensor,
     The reference takes the starts as an f32 cumsum of the counts, which
     is inexact once the rows pass 2^24 (and on a card its scan order, so
     its rounding, may vary); the port sums the counts in int64, exactly.
-    The two agree wherever the f32 sum is exact."""
-    keys = torch.where(keys < 0, -1, torch.clamp(keys, max=n_groups - 1))
-    order_v = torch.argsort(vals, stable=True)
-    k1, v1 = keys[order_v], vals[order_v]
-    order_k = torch.argsort(k1, stable=True)
-    sv, sk = v1[order_k], k1[order_k]
-    counts = segment_sum(torch.ones_like(keys, dtype=F32),
-                         torch.clamp(keys, 0, n_groups - 1), n_groups)
-    # excluded records (clipped into group 0 above) come off group 0's count
-    n_excl = (keys < 0).sum()
-    pad = torch.zeros((n_groups,), dtype=F32, device=keys.device)
-    pad[0] = n_excl
-    counts = counts - pad
-    c64 = counts.to(torch.int64)
-    starts = torch.cumsum(c64, 0) - c64 + n_excl
+    The two agree wherever the f32 sum is exact. Its spans carry W1's
+    names (median.sort, median.counts) for every order statistic."""
+    with tracing.span("median.sort", "op"):
+        keys = torch.where(keys < 0, -1, torch.clamp(keys, max=n_groups - 1))
+        order_v = torch.argsort(vals, stable=True)
+        k1, v1 = keys[order_v], vals[order_v]
+        order_k = torch.argsort(k1, stable=True)
+        sv, sk = v1[order_k], k1[order_k]
+    with tracing.span("median.counts", "op"):
+        counts = segment_sum(torch.ones_like(keys, dtype=F32),
+                             torch.clamp(keys, 0, n_groups - 1), n_groups)
+        # excluded records (clipped into group 0 above) leave group 0's count
+        n_excl = (keys < 0).sum()
+        pad = torch.zeros((n_groups,), dtype=F32, device=keys.device)
+        pad[0] = n_excl
+        counts = counts - pad
+        c64 = counts.to(torch.int64)
+        starts = torch.cumsum(c64, 0) - c64 + n_excl
     return sv, counts, starts, sk
 
 
@@ -376,12 +383,13 @@ def segment_median(keys: torch.Tensor, vals: torch.Tensor, n_groups: int
     """Exact per-group median (mean of the two middle elements; NaN for
     empty groups) by sort + selection. Returns (medians, counts)."""
     sv, counts, starts, _sk = _segment_selection(keys, vals, n_groups)
-    c, s = counts.to(torch.int64), starts.to(torch.int64)
-    last = sv.shape[0] - 1
-    lo = torch.clamp(s + torch.clamp((c - 1) // 2, min=0), 0, last)
-    hi = torch.clamp(s + torch.clamp(c // 2, min=0), 0, last)
-    med = (sv[lo] + sv[hi]) * 0.5
-    return torch.where(c > 0, med, torch.nan), counts
+    with tracing.span("median.select", "op"):
+        c, s = counts.to(torch.int64), starts.to(torch.int64)
+        last = sv.shape[0] - 1
+        lo = torch.clamp(s + torch.clamp((c - 1) // 2, min=0), 0, last)
+        hi = torch.clamp(s + torch.clamp(c // 2, min=0), 0, last)
+        med = (sv[lo] + sv[hi]) * 0.5
+        return torch.where(c > 0, med, torch.nan), counts
 
 
 def segment_quantile(keys: torch.Tensor, vals: torch.Tensor, n_groups: int,
@@ -493,21 +501,25 @@ def _fused_partitioned(keys: torch.Tensor, vals: torch.Tensor, n_groups: int,
     """Large key domain: range partition, then fused per-partition tables.
     The partition-local slot (key % range_size) is collision-free, so the
     result is exact whenever no partition overflows its capacity; the
-    overflow is counted and returned."""
+    overflow is counted and returned. Its spans carry W2's names
+    (count.partition, count.aggregate) for every partitioned aggregate."""
     N, C = vals.shape
     range_size = -(-n_groups // n_partitions)
     bins = max(128, -(-range_size // 128) * 128)
-    part = torch.clamp(keys // range_size, 0, n_partitions - 1)
-    order = torch.argsort(part, stable=True)
-    sk, sv = keys[order], take_rows(vals, order)
-    counts_p = torch.bincount(part, minlength=n_partitions)
-    starts = torch.cumsum(counts_p, 0) - counts_p
-    pad_t = int(max(block,
-                    -(-int(N // n_partitions * capacity_factor) // block)
-                    * block))
-    pk, pv, overflow = pad_partitions(sk, sv, starts, counts_p, n_partitions,
-                                      pad_t)
-    local = torch.where(pk < 0, 0, pk % range_size)   # padded vals are zero
-    table = hash_aggregate_multi(local, pv, n_bins=bins, mode=mode)
-    flat = table[:, :range_size, :].reshape(n_partitions * range_size, C)
-    return flat[:n_groups], overflow
+    with tracing.span("count.partition", "op"):
+        part = torch.clamp(keys // range_size, 0, n_partitions - 1)
+        order = torch.argsort(part, stable=True)
+        sk, sv = keys[order], take_rows(vals, order)
+        with tracing.span("sync:count.bincount", "sync", syncs=2):
+            counts_p = torch.bincount(part, minlength=n_partitions)
+        starts = torch.cumsum(counts_p, 0) - counts_p
+        pad_t = int(max(block,
+                        -(-int(N // n_partitions * capacity_factor) // block)
+                        * block))
+        pk, pv, overflow = pad_partitions(sk, sv, starts, counts_p,
+                                          n_partitions, pad_t)
+    with tracing.span("count.aggregate", "op"):
+        local = torch.where(pk < 0, 0, pk % range_size)  # padded vals are 0
+        table = hash_aggregate_multi(local, pv, n_bins=bins, mode=mode)
+        flat = table[:, :range_size, :].reshape(n_partitions * range_size, C)
+        return flat[:n_groups], overflow

@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.analytics import tracing
+
 _KNUTH = 2654435761
 _MASK32 = 0xFFFFFFFF
 
@@ -50,9 +52,10 @@ def pad_partitions(sorted_keys: torch.Tensor, sorted_vals: torch.Tensor,
     idx = starts.to(torch.int64)[:, None] + slot[None, :]
     valid = slot[None, :] < torch.clamp(counts, max=pad_t)[:, None]
     idx = torch.clamp(idx, 0, sorted_keys.shape[0] - 1)
-    keys = torch.where(valid, sorted_keys[idx],
-                       torch.tensor(pad_key, dtype=sorted_keys.dtype,
-                                    device=dev))
+    with tracing.span("sync:pad_partitions.pad_key", "sync"):
+        # a blocking copy from the host: it waits for the device's queue
+        pad = torch.tensor(pad_key, dtype=sorted_keys.dtype, device=dev)
+    keys = torch.where(valid, sorted_keys[idx], pad)
     vmask = valid.reshape(valid.shape + (1,) * (sorted_vals.dim() - 1))
     vals = torch.where(vmask, sorted_vals[idx],
                        torch.zeros((), dtype=sorted_vals.dtype, device=dev))

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.analytics import tracing
 from repro_torch.analytics.hashing import (multiply_shift, pad_partitions,
                                            partition_of)
 from repro_torch.kernels.join_probe import join_probe
@@ -44,18 +45,23 @@ def hash_join(build_keys: torch.Tensor, build_vals: torch.Tensor,
         n = keys.shape[0]
         part = partition_of(keys, n_partitions)
         order = torch.argsort(part, stable=True)
-        counts = torch.bincount(part, minlength=n_partitions)
+        with tracing.span("sync:hash_join.bincount", "sync", syncs=2):
+            counts = torch.bincount(part, minlength=n_partitions)
         starts = torch.cumsum(counts, 0) - counts
         pad_t = int(max(128, -(-int(n // n_partitions * capacity_factor)
                                // 128) * 128))
         return pad_partitions(keys[order], vals[order], starts, counts,
                               n_partitions, pad_t, pad_key=pad_key)
 
-    bk, bv, ovf_b = layout(build_keys, build_vals.to(F32), -1)
-    pk, _, ovf_p = layout(probe_keys, torch.ones_like(probe_keys, dtype=F32),
-                          -2)
-    vals, found = join_probe(bk, bv, pk, mode=mode)
-    return found.sum(), vals.sum(), (ovf_b + ovf_p).to(torch.int32)
+    with tracing.span("hash_join", "op"):
+        with tracing.span("hash_join.layout", "op", side="build"):
+            bk, bv, ovf_b = layout(build_keys, build_vals.to(F32), -1)
+        with tracing.span("hash_join.layout", "op", side="probe"):
+            pk, _, ovf_p = layout(probe_keys,
+                                  torch.ones_like(probe_keys, dtype=F32), -2)
+        with tracing.span("hash_join.probe", "op"):
+            vals, found = join_probe(bk, bv, pk, mode=mode)
+            return found.sum(), vals.sum(), (ovf_b + ovf_p).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +82,8 @@ def build_radix_index(keys: torch.Tensor, vals: torch.Tensor, *,
     order_k = torch.argsort(keys, stable=True)
     k1, v1, b1 = keys[order_k], vals[order_k], bucket[order_k]
     order_b = torch.argsort(b1, stable=True)
-    counts = torch.bincount(bucket, minlength=1 << bits)
+    with tracing.span("sync:radix_index.bincount", "sync", syncs=2):
+        counts = torch.bincount(bucket, minlength=1 << bits)
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
     return RadixIndex(k1[order_b], v1[order_b], starts, bits)
 
@@ -187,5 +194,9 @@ def index_join(build_keys: torch.Tensor, build_vals: torch.Tensor,
     if index_kind not in _INDEX_KINDS:
         raise ValueError(f"unknown index kind {index_kind!r}")
     build, probe = _INDEX_KINDS[index_kind]
-    vals, found = probe(build(build_keys, build_vals), probe_keys)
-    return found.sum(), vals.sum()
+    with tracing.span("index_join", "op", kind=index_kind):
+        with tracing.span("index.build", "op", kind=index_kind):
+            index = build(build_keys, build_vals)
+        with tracing.span("index.probe", "op", kind=index_kind):
+            vals, found = probe(index, probe_keys)
+            return found.sum(), vals.sum()

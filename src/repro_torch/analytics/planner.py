@@ -1704,11 +1704,13 @@ class CompiledPlan:
     Compiled under telemetry (``record``), each call strips the reserved
     ``"_stats"`` output, reads it back (one host sync, the price of
     observing) and folds it into the StatsRegistry under ``cache_key``
-    with the dispatch's wall time. Under tracing, each call adds a
-    ``plan.execute`` span. Its clock is the host's and the launches are
+    with the dispatch's wall time. Under tracing, each call is a
+    ``plan.execute`` span, and the operator, sync and kernel spans of its
+    walk nest under it. Its clock is the host's and the launches are
     asynchronous, so an untracked span covers the host's issue of the
     plan's work, not its completion on the device (a tracked one ends
-    after the stats' read-back); tracing adds no sync."""
+    after the stats' read-back); the sync spans under it show where that
+    work is waited for. Tracing adds no sync."""
 
     __slots__ = ("plan", "ctx", "fn", "index_specs", "physical", "cache_key",
                  "record")
@@ -1731,12 +1733,9 @@ class CompiledPlan:
         # unchanged callable
         if not tracing.tracing_enabled():
             return self._execute(tables)
-        t0 = time.monotonic()
-        out = self._execute(tables)
-        tracing.tracer().add_complete(
-            "plan.execute", "plan", t0, time.monotonic(), pid="plan",
-            key=hash(self.cache_key), recorded=self.record)
-        return out
+        with tracing.span("plan.execute", "plan", pid="plan",
+                          key=hash(self.cache_key), recorded=self.record):
+            return self._execute(tables)
 
     def _execute(self, tables) -> Dict[str, torch.Tensor]:
         indexes = {}
@@ -1771,18 +1770,13 @@ def compile_plan(plan: L.LogicalPlan, tables,
     key = (plan, ctx.cache_key(), _signature(tables), profile, record)
     entry = _PLAN_CACHE.get(key)
     if entry is None:
-        traced = tracing.tracing_enabled()
-        t0 = time.monotonic() if traced else 0.0
-        L.validate(plan)     # fail fast (and once)
-        phys = lower(plan, ctx, _true_rows(tables), profile)
-        entry = (phys, functools.partial(_run_plan, phys, ctx, profile,
-                                         record))
-        _PLAN_CACHE.put(key, entry)
-        if traced:
-            # the lowering a cache hit amortizes away
-            tracing.tracer().add_complete(
-                "plan.compile", "plan", t0, time.monotonic(), pid="plan",
-                key=hash(key))
+        # the lowering a cache hit amortizes away
+        with tracing.span("plan.compile", "plan", pid="plan", key=hash(key)):
+            L.validate(plan)     # fail fast (and once)
+            phys = lower(plan, ctx, _true_rows(tables), profile)
+            entry = (phys, functools.partial(_run_plan, phys, ctx, profile,
+                                             record))
+            _PLAN_CACHE.put(key, entry)
     elif record:
         entry = _maybe_replan(key, entry, plan, ctx, profile, tables)
     phys, fn = entry

@@ -13,7 +13,6 @@ facade merges into ServiceStats.
 from __future__ import annotations
 
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
@@ -96,24 +95,24 @@ class QueryBatcher:
                 planner.table_signature(req.tables))
 
     def group(self, requests: List[QueryRequest]) -> List[QueryBatch]:
-        t0 = time.monotonic() if tracing.tracing_enabled() else 0.0
-        groups: Dict[Tuple, QueryBatch] = {}
-        for req in requests:
-            key = self.batch_key(req)
-            if key not in groups:
-                groups[key] = QueryBatch(key)
-            groups[key].requests.append(req)
-        with self._lock:
-            for batch in groups.values():
-                by_tables: Dict[int, List[QueryRequest]] = {}
-                for req in batch.requests:
-                    by_tables.setdefault(id(req.tables), []).append(req)
-                batch.shares = list(by_tables.values())
-                self._stats.batches += 1
-                if len(batch.requests) > 1:
-                    self._stats.batched_queries += len(batch.requests)
-        if requests and t0 and tracing.tracing_enabled():
-            tracing.tracer().add_complete(
-                "batch.group", "batcher", t0, time.monotonic(),
-                requests=len(requests), batches=len(groups))
+        if not requests:
+            return []
+        with tracing.span("batch.group", "batcher", pid="service",
+                          requests=len(requests)):
+            groups: Dict[Tuple, QueryBatch] = {}
+            for req in requests:
+                key = self.batch_key(req)
+                if key not in groups:
+                    groups[key] = QueryBatch(key)
+                groups[key].requests.append(req)
+            with self._lock:
+                for batch in groups.values():
+                    by_tables: Dict[int, List[QueryRequest]] = {}
+                    for req in batch.requests:
+                        by_tables.setdefault(id(req.tables), []).append(req)
+                    batch.shares = list(by_tables.values())
+                    self._stats.batches += 1
+                    if len(batch.requests) > 1:
+                        self._stats.batched_queries += len(batch.requests)
+            tracing.note(batches=len(groups))
         return list(groups.values())

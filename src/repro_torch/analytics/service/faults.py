@@ -91,9 +91,12 @@ class ServiceFaultInjector:
                 self.builds_failed += 1
                 if tracing.tracing_enabled():
                     # flight recorder: every injected fault must leave a
-                    # postmortem artifact (the chaos grid asserts it)
+                    # postmortem artifact (the chaos grid asserts it),
+                    # tied to the request whose dispatch.build is open
+                    frame = tracing.current()
                     tracing.tracer().flight_dump(
-                        "fault.build_fail", ordinal=o)
+                        "fault.build_fail", ordinal=o,
+                        trace_id=-1 if frame is None else frame.trace_id)
                 raise InjectedServiceFault(
                     f"injected build failure at dispatch {o}")
             return o

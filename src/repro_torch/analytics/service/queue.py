@@ -31,7 +31,6 @@ race-free, and they CONSERVE exactly:
 from __future__ import annotations
 
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional
@@ -48,7 +47,7 @@ class QueryRequest:
     ``tables`` is a {table: {column: array}} mapping — held by reference,
     never copied; structurally identical requests over the SAME mapping
     are deduplicated into one dispatch by the batcher. ``deadline_s`` is
-    an absolute ``time.monotonic()`` point; None = no deadline.
+    an absolute ``tracing.now()`` point; None = no deadline.
     ``priority`` is the service class (higher = more important; dequeued
     first, shed last)."""
 
@@ -173,7 +172,7 @@ class AdmissionQueue:
         shed watermark evicts a strictly-lower-priority victim instead of
         rejecting a high-priority arrival — collect victims via
         ``pop_overload_shed``."""
-        now = time.monotonic() if now is None else now
+        now = tracing.now() if now is None else now
         with self._lock:
             self._stats.submitted += 1
             limit = self.max_depth
@@ -208,7 +207,7 @@ class AdmissionQueue:
         Returns (live, expired): requests whose deadline passed while
         queued are shed — counted, and handed back so the serving loop can
         report their fate to the submitter instead of dropping silently."""
-        now = time.monotonic() if now is None else now
+        now = tracing.now() if now is None else now
         out: List[QueryRequest] = []
         shed: List[QueryRequest] = []
         with self._lock:
@@ -261,7 +260,7 @@ class AdmissionQueue:
         passed — called between serving rounds so a request that expired
         while an earlier round was being served is shed promptly (counted
         in ``expired``) instead of waiting to be dequeued late."""
-        now = time.monotonic() if now is None else now
+        now = tracing.now() if now is None else now
         shed: List[QueryRequest] = []
         with self._lock:
             for p in list(self._buckets):

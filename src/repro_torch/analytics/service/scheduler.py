@@ -167,7 +167,7 @@ class QueryTask:
         self.result: Optional[Dict[str, torch.Tensor]] = None
         self.submit_t: float = 0.0          # scheduler.submit stamp
         self.merge_t: float = 0.0           # last morsel done, merge begins
-        self.done_t: float = 0.0            # completion stamp (monotonic)
+        self.done_t: float = 0.0            # completion stamp (tracing.now)
         self.trace_id: int = -1             # owning request id (service)
         if morsel_fn is None:
             self.morsels = [_Morsel(self, 0, 0, 0)]
@@ -230,7 +230,7 @@ class QueryTask:
     def _finish(self) -> None:
         # the merge phase begins when the LAST morsel lands — everything
         # between merge_t and done_t is morsel-order merge + finalize
-        self.merge_t = time.monotonic()
+        self.merge_t = tracing.now()
         if self._error is None and self.morsel_fn is not None:
             try:
                 # merge in MORSEL order, not completion order: the served
@@ -246,7 +246,7 @@ class QueryTask:
         # stamp completion HERE, not when a waiter gets around to joining:
         # per-query latency must not include time spent waiting on other
         # tasks in the drain loop
-        self.done_t = time.monotonic()
+        self.done_t = tracing.now()
         if tracing.tracing_enabled() and self.morsel_fn is not None:
             tracing.tracer().add_complete(
                 "merge.partials", "scheduler", self.merge_t, self.done_t,
@@ -452,7 +452,7 @@ class MorselScheduler:
                 raise RuntimeError("no live worker pools — every pool is "
                                    "dead or quarantined")
             self._tasks += 1
-            task.submit_t = time.monotonic()
+            task.submit_t = tracing.now()
             if _on_cuda(task.device):
                 # the task's inputs were made on this thread's stream: the
                 # pools' streams wait on this event before its morsels
@@ -626,26 +626,28 @@ class MorselScheduler:
             if host_delay > 0.0:
                 time.sleep(host_delay)
             t0 = time.monotonic()
-            if _on_cuda(dev):
-                stream = pool.streams[dev]
-                # the stream context is thread-local: each worker sets it
-                with torch.cuda.stream(stream):
-                    stream.wait_event(m.task.ready)
-                    if delay > 0.0:
-                        self._device_delay(dev, delay)
+            # the request's id reaches every span the morsel opens
+            with tracing.scope(m.task.trace_id), \
+                    tracing.span("morsel.run", "scheduler",
+                                 pid=f"pool{pool.pool_id}", seq=m.seq,
+                                 rows=m.length):
+                if _on_cuda(dev):
+                    stream = pool.streams[dev]
+                    # the stream context is thread-local: each worker
+                    # sets it
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(m.task.ready)
+                        if delay > 0.0:
+                            self._device_delay(dev, delay)
+                        m.task._run_morsel(m, pool.pool_id)
+                        # a morsel that raised (a poisoned task) still
+                        # waits for what its pool queued, the straggle
+                        # too: the EWMA counts the delay, as the host
+                        # sleep always is
+                        stream.synchronize()
+                else:
                     m.task._run_morsel(m, pool.pool_id)
-                    # a morsel that raised (a poisoned task) still waits
-                    # for what its pool queued, the straggle too: the
-                    # EWMA counts the delay, as the host sleep always is
-                    stream.synchronize()
-            else:
-                m.task._run_morsel(m, pool.pool_id)
             t1 = time.monotonic()
-            if tracing.tracing_enabled():
-                tracing.tracer().add_complete(
-                    "morsel.run", "scheduler", t0, t1,
-                    trace_id=m.task.trace_id, pid=f"pool{pool.pool_id}",
-                    seq=m.seq, rows=m.length)
             dt = t1 - t0 + host_delay           # EWMA must see the straggle
             with self._cv:
                 pool.inflight -= 1

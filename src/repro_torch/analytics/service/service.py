@@ -291,7 +291,7 @@ class AnalyticsService:
             req_id=rid, plan=plan, tables=tables,
             context=context or ExecutionContext(),
             deadline_s=(None if deadline_s is None
-                        else time.monotonic() + deadline_s),
+                        else tracing.now() + deadline_s),
             client_id=client_id, priority=priority)
         if not self.queue.offer(req):
             return None
@@ -473,7 +473,7 @@ class AnalyticsService:
                      out: Optional[Dict[int, QueryResult]]) -> None:
         # dispatch-time deadline re-check: take_batch's check can go stale
         # while the batch waits its turn behind other rounds
-        now = time.monotonic()
+        now = tracing.now()
         live = []
         for req in round_reqs:
             if req.expired(now):
@@ -522,7 +522,7 @@ class AnalyticsService:
                    rep: QueryRequest) -> bool:
         policy = self.config.retry
         return (policy is not None
-                and policy.should_retry(attempt, time.monotonic(),
+                and policy.should_retry(attempt, tracing.now(),
                                         deadline, key=rep.req_id))
 
     def _count_retry(self, rep: QueryRequest) -> None:
@@ -532,25 +532,20 @@ class AnalyticsService:
 
     def _try_dispatch(self, rep: QueryRequest):
         """One build+submit attempt -> (task, None) | (None, error str)."""
-        traced = tracing.tracing_enabled()
-        t0 = time.monotonic() if traced else 0.0
         try:
-            task = self.scheduler.build_task(rep.plan, rep.tables,
-                                             rep.context)
-            # thread the request id through the scheduler BEFORE submit:
-            # morsel.run / steal / merge spans attribute to this request
-            task.trace_id = rep.req_id
-            self.scheduler.submit(task)
+            # a failed attempt's span notes its error
+            with tracing.scope(rep.req_id), \
+                    tracing.span("dispatch.build", "service", pid="service"):
+                task = self.scheduler.build_task(rep.plan, rep.tables,
+                                                 rep.context)
+                # thread the request id through the scheduler BEFORE
+                # submit: morsel.run / steal / merge spans attribute to
+                # this request
+                task.trace_id = rep.req_id
+                self.scheduler.submit(task)
+                tracing.note(morsels=len(task.morsels))
         except Exception as e:  # noqa: BLE001 — reported per share
-            if traced:
-                tracing.tracer().add_complete(
-                    "dispatch.build", "service", t0, time.monotonic(),
-                    trace_id=rep.req_id, error=type(e).__name__)
             return None, f"{type(e).__name__}: {e}"
-        if traced:
-            tracing.tracer().add_complete(
-                "dispatch.build", "service", t0, time.monotonic(),
-                trace_id=rep.req_id, morsels=len(task.morsels))
         with self._lock:
             self._dispatches += 1
         return task, None
@@ -559,13 +554,9 @@ class AnalyticsService:
         """Sleep the retry backoff; returns the slept seconds (the
         retry_backoff attribution phase) and records the span."""
         delay = self.config.retry.backoff_s(attempt, key=rep.req_id)
-        if tracing.tracing_enabled():
-            t0 = time.monotonic()
-            time.sleep(delay)
-            tracing.tracer().add_complete(
-                "retry.backoff", "service", t0, time.monotonic(),
-                trace_id=rep.req_id, attempt=attempt)
-        else:
+        with tracing.scope(rep.req_id), \
+                tracing.span("retry.backoff", "service", pid="service",
+                             attempt=attempt):
             time.sleep(delay)
         return delay
 
@@ -573,13 +564,13 @@ class AnalyticsService:
         """Build+submit with retry/backoff.
 
         Returns (task|None, attempts, err, build_start, backoff_s):
-        ``build_start`` is the monotonic stamp at which THIS share's
+        ``build_start`` is the ``tracing.now()`` stamp at which THIS share's
         first build attempt began (the end of its batch-wait phase) and
         ``backoff_s`` the backoff slept so far — both feed latency
         attribution."""
         rep = share[0]
         deadline = self._share_deadline(share)
-        build_start = time.monotonic()
+        build_start = tracing.now()
         backoff = 0.0
         attempt = 0
         while True:
@@ -635,7 +626,7 @@ class AnalyticsService:
         Returns (value, None, False) on success; (None, err, False) on a
         retryable failure (exception or hang-budget timeout); (None, err,
         True) when the share's deadline passed while waiting."""
-        start = time.monotonic()
+        start = tracing.now()
         hang = self.config.hang_timeout_s
         while True:
             try:
@@ -645,7 +636,7 @@ class AnalyticsService:
                 # quarantine + requeue lets the SAME task finish on
                 # surviving pools without burning a retry attempt
                 self.scheduler.check_pools()
-                now = time.monotonic()
+                now = tracing.now()
                 if deadline is not None and now > deadline:
                     return None, "deadline exceeded in flight", True
                 if hang is not None and now - start > hang:
@@ -663,7 +654,7 @@ class AnalyticsService:
         # join order (a fast query must not inherit a slow peer's
         # wait-loop position)
         done = (task.done_t if task is not None and task.done_t
-                else time.monotonic())
+                else tracing.now())
         for req in share:
             phases = None
             if error is None and value is not None and task is not None \
@@ -702,7 +693,7 @@ class AnalyticsService:
                 phases: Optional[Dict[str, float]] = None) -> None:
         """The single terminal-result sink: stats, SLO, result store."""
         traced = tracing.tracing_enabled()
-        done = time.monotonic() if done is None else done
+        done = tracing.now() if done is None else done
         wait = ((req.dispatch_t if req.dispatch_t else done) - req.submit_t)
         res = QueryResult(
             req_id=req.req_id,
@@ -722,7 +713,7 @@ class AnalyticsService:
                     "overload.shed", req=req.req_id, cls=req.priority)
             # delivery lag: task completion -> terminal result visible
             tracing.tracer().add_complete(
-                "result.deliver", "service", done, time.monotonic(),
+                "result.deliver", "service", done, tracing.now(),
                 trace_id=req.req_id,
                 outcome=("error" if error is not None else
                          "expired" if expired else

@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (check_input, count_launch,
                                         kernel_mode, stream_handle)
@@ -98,7 +99,9 @@ def _launch(build_keys: torch.Tensor, build_vals: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"join_probe launch failed: CUDA error {rc}")
     count_launch("join_probe")
-    if int(duplicate.item()):
+    with tracing.span("sync:join_probe.duplicate", "sync"):
+        duplicated = int(duplicate.item())
+    if duplicated:
         raise ValueError("join_probe: a partition holds a build key other "
                          "than -1 twice; build keys must be unique (PK-FK)")
     return vals, found

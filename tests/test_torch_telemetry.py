@@ -442,8 +442,11 @@ def test_plan_spans_compile_and_execute_close():
             T.run_query("q3", data, context=ctx)
         T.run_query("q3", data, context=ctx)       # a second cache entry
         T.run_query("q3", data, context=ctx)       # a hit: execute only
-        spans, open_left = tr.spans(), tr.open_spans()
+        every, open_left = tr.spans(), tr.open_spans()
     assert open_left == []
+    # the operators' spans of each walk (op, sync) come beside the plan's
+    spans = [s for s in every if s.cat == "plan"]
+    assert {s.cat for s in every} - {"plan"} <= {"op", "sync"}
     names = [s.name for s in spans]
     assert names == ["plan.compile", "plan.execute", "plan.compile",
                      "plan.execute", "plan.execute"]
