@@ -638,6 +638,37 @@ def time_join_probe(args, label, cut=None):
                 ms_with_host_sync=with_sync, **extra)
 
 
+def time_radix_probe(index, probe_keys, label):
+    """Kernel, plain and bound times of one radix index probe; the
+    kernel's vals (as bits) and found must equal the plain version's."""
+    import torch
+    from repro_torch.kernels.radix_probe import radix_probe
+    from repro_torch.kernels.radix_probe.ref import radix_probe_ref
+    args = (index.sorted_keys, index.sorted_vals, index.bucket_starts,
+            index.bits, probe_keys)
+    v, f = radix_probe(*args, mode="cuda")
+    rv, rf = radix_probe_ref(*args)
+    if not (torch.equal(v.view(torch.int32), rv.view(torch.int32))
+            and torch.equal(f, rf)):
+        raise AssertionError(
+            f"radix_probe {label}: differs from the plain version "
+            f"({int((v != rv).sum())} vals, {int((f != rf).sum())} found)")
+    found = int(f.sum())
+    del v, f, rv, rf
+    # no host sync in the wrapper: events read the device
+    ms = cuda_ms(lambda: radix_probe(*args, mode="cuda"), reps=20)
+    plain = cuda_ms(lambda: radix_probe_ref(*args), reps=2)
+    n, m = index.sorted_keys.numel(), probe_keys.numel()
+    # probe keys read once, vals and found written once, the index once
+    n_bytes = 4 * m + 5 * m + 8 * n + 8 * index.bucket_starts.numel()
+    b_ms, b_by = bound_ms(n_bytes, 0.0)
+    log(f"radix_probe {label}: bit-equal to the plain version ({found} "
+        f"of {m} found)")
+    return dict(shape=f"{label}: index of {n} keys, {1 << index.bits} "
+                f"buckets, {m} probes", ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at SF1
 # ---------------------------------------------------------------------------
@@ -2271,7 +2302,8 @@ def w_phase(wd, dev):
 # ---------------------------------------------------------------------------
 W_KERNELS = {"count_partitioned": ("hash_aggregate_multi",
                                    "agg_partial_kernel"),
-             "hash_join": ("join_probe", "join_probe_kernel")}
+             "hash_join": ("join_probe", "join_probe_kernel"),
+             "index_join/radix": ("radix_probe", "radix_probe_kernel")}
 
 
 def w_local_phase(wd):
@@ -2280,7 +2312,7 @@ def w_local_phase(wd):
     bincount, medians against the sort oracle, W3 and W4 counts and
     checksums against float64. The launch counts are zeroed just before
     the operators run and read just after; torch.profiler must also see
-    each kernel launched inside its operator. Returns (launches, the two
+    each kernel launched inside its operator. Returns (launches, the three
     kernels' timings at these shapes)."""
     import torch
     from repro_torch.analytics import aggregate, columnar, join
@@ -2406,9 +2438,13 @@ def w_local_phase(wd):
     probe_t = time_join_probe(probe_calls[0][0], "W3 hash_join, blanas_join("
                               f"{W_BUILD}, {W_PROBE})",
                               cut=(1, Pk // P))
-    for kind, t in (("hash_aggregate", agg_t), ("join_probe", probe_t)):
+    radix_t = time_radix_probe(join.build_radix_index(bk, bv), pk,
+                               f"W4 radix, blanas_join({W_BUILD}, "
+                               f"{W_PROBE})")
+    for kind, t in (("hash_aggregate", agg_t), ("join_probe", probe_t),
+                    ("radix_probe", radix_t)):
         log(f"{kind} timing (W1-W4 one device) {json.dumps(t)}")
-    return launches, agg_t, probe_t
+    return launches, agg_t, probe_t, radix_t
 
 
 # ---------------------------------------------------------------------------
@@ -6399,7 +6435,8 @@ def main() -> int:
     wd = WData(dev)
     w_phase(wd, dev)
     peak_line("W1-W3")
-    w_launches, w_agg_time, w_probe_time = w_local_phase(wd)
+    (w_launches, w_agg_time, w_probe_time,
+     w_radix_time) = w_local_phase(wd)
     del wd
     peak_line("W1-W4 one device")
     lm_kernels = lm_phase(dev)
@@ -6495,6 +6532,12 @@ def main() -> int:
              launches_w_one_device=w_launches["join_probe"],
              launches_service=svc_launches["join_probe"],
              **probe_time, other_shapes=[w_probe_time]),
+        dict(name="radix_probe", route="cuda",
+             source="src/repro_torch/kernels/csrc/radix_probe.cu",
+             replaces="the reference's fori_loop search, "
+             "src/repro/analytics/join.py (probe_radix_index); no kernel",
+             launches_w_one_device=w_launches["radix_probe"],
+             **w_radix_time),
         dict(name="block_histograms", route="cuda",
              source="src/repro_torch/kernels/csrc/radix_partition.cu",
              replaces="src/repro/kernels/radix_partition/kernel.py:35",

@@ -7,7 +7,8 @@ the join_probe kernel probes each partition; on a CUDA tensor it launches
 the CUDA ``join_probe``.
 
 W4: a pre-built read-only index accelerates the lookups. Three index
-kinds, each a build and a probe of plain tensor operations:
+kinds, each a build and a probe of plain tensor operations (the radix
+probe a kernel on a CUDA tensor):
   radix_index   bucket directory on a hash prefix + sorted runs (the
                 paper's ART)
   sorted_index  binary search over the sorted keys (B+Tree leaves /
@@ -26,6 +27,7 @@ from repro_torch.analytics import tracing
 from repro_torch.analytics.hashing import (multiply_shift, pad_partitions,
                                            partition_of)
 from repro_torch.kernels.join_probe import join_probe
+from repro_torch.kernels.radix_probe import radix_probe
 
 F32 = torch.float32
 
@@ -90,21 +92,11 @@ def build_radix_index(keys: torch.Tensor, vals: torch.Tensor, *,
 
 def probe_radix_index(index: RadixIndex, probe_keys: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bucket lookup, then a branchless binary search within the bucket's
-    run: a fixed trip count of ``n.bit_length()`` steps, every probe key
-    stepping at once."""
-    bucket = multiply_shift(probe_keys, index.bits)
-    lo = index.bucket_starts[bucket]
-    hi = index.bucket_starts[bucket + 1]
-    n = index.sorted_keys.shape[0]
-    for _ in range(max(1, int(n).bit_length())):
-        mid = (lo + hi) // 2
-        go_right = index.sorted_keys[torch.clamp(mid, 0, n - 1)] < probe_keys
-        lo, hi = torch.where(go_right, mid + 1, lo), torch.where(go_right,
-                                                                 hi, mid)
-    pos = torch.clamp(lo, 0, n - 1)
-    found = index.sorted_keys[pos] == probe_keys
-    return torch.where(found, index.sorted_vals[pos], 0.0), found
+    """Bucket lookup, then a lower bound within the bucket's run: the
+    radix_probe kernel on a CUDA tensor, its plain version (a fixed-trip
+    binary search, every probe key stepping at once) on the CPU."""
+    return radix_probe(index.sorted_keys, index.sorted_vals,
+                       index.bucket_starts, index.bits, probe_keys)
 
 
 class SortedIndex(NamedTuple):

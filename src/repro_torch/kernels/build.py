@@ -26,6 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"hash_aggregate": "hash_aggregate.cu",
            "join_probe": "join_probe.cu",
            "radix_partition": "radix_partition.cu",
+           "radix_probe": "radix_probe.cu",
            "flash_attention": "flash_attention.cu",
            "rglru_scan": "rglru_scan.cu",
            "rwkv6_scan": "rwkv6_scan.cu"}

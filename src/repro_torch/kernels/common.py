@@ -61,8 +61,8 @@ def kernel_mode(mode: Optional[str] = None,
 # went through the kernels (chip_smoke.py zeroes them around the main path).
 # The shards of a virtual mesh launch from threads, hence the lock.
 LAUNCHES = {"hash_aggregate_multi": 0, "join_probe": 0,
-            "block_histograms": 0, "flash_attention": 0, "rglru_scan": 0,
-            "wkv6": 0}
+            "radix_probe": 0, "block_histograms": 0, "flash_attention": 0,
+            "rglru_scan": 0, "wkv6": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 

@@ -12,7 +12,10 @@ import torch
 
 from _agg_order import kernel_order_sums, q18_like
 from _join_cases import CASES, case
+from _radix_cases import CASES as RADIX_CASES
+from _radix_cases import case as radix_case
 from _scan_order import kernel_order_scan
+from repro_torch.analytics import join
 from repro_torch.analytics.columnar import segment_sum, take_rows
 from repro_torch.kernels import common
 from repro_torch.kernels.hash_aggregate import (hash_aggregate,
@@ -22,6 +25,8 @@ from repro_torch.kernels.join_probe.ref import join_probe_ref
 from repro_torch.kernels.radix_partition.ops import (block_histograms,
                                                      padded_bin_counts)
 from repro_torch.kernels.radix_partition.ref import block_histograms_ref
+from repro_torch.kernels.radix_probe import radix_probe
+from repro_torch.kernels.radix_probe.ref import radix_probe_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import (attention_chunked,
                                                      attention_naive)
@@ -258,6 +263,71 @@ def test_cuda_join_probe_takes_repeated_padding(dev):
     want = join_probe(*(torch.from_numpy(x) for x in (bk, bv, pk)))
     assert torch.equal(_f32_bits(got[0]).cpu(), _f32_bits(want[0]))
     assert torch.equal(got[1].cpu(), want[1])
+
+
+def _radix_args(dev, name, bits=10):
+    bk, bv, pk = (torch.from_numpy(x).to(dev)
+                  for x in radix_case(name, scale=100))
+    index = join.build_radix_index(bk, bv, bits=bits)
+    return (index.sorted_keys, index.sorted_vals, index.bucket_starts,
+            index.bits, pk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RADIX_CASES))
+def test_cuda_radix_probe_equals_plain_bits(dev, name):
+    """The kernel against the plain version on the card, vals bit for bit
+    (a -0.0 payload included) and found, on the edge cases of
+    _radix_cases (the Blanas draws at 200K x 3.2M)."""
+    args = _radix_args(dev, name)
+    before = common.LAUNCHES["radix_probe"]
+    got_v, got_f = radix_probe(*args)
+    assert common.LAUNCHES["radix_probe"] == before + (args[-1].numel() > 0)
+    want_v, want_f = radix_probe_ref(*args)
+    assert torch.equal(_f32_bits(got_v), _f32_bits(want_v))
+    assert torch.equal(got_f, want_f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 4, 13, 16])
+def test_cuda_radix_probe_takes_any_bucket_count(dev, bits):
+    """One bucket, long runs, fewer staged levels (2 at 2^13 buckets) and
+    none (2^16 buckets)."""
+    args = _radix_args(dev, "blanas with misses", bits=bits)
+    got_v, got_f = radix_probe(*args)
+    want_v, want_f = radix_probe_ref(*args)
+    assert torch.equal(_f32_bits(got_v), _f32_bits(want_v))
+    assert torch.equal(got_f, want_f)
+
+
+@pytest.mark.cuda
+def test_cuda_radix_probe_rejects_what_it_cannot_take(dev):
+    sk, sv, starts, bits, pk = _radix_args(dev, "blanas")
+    with pytest.raises(TypeError, match="int32"):
+        radix_probe(sk, sv, starts, bits, pk.long())
+    with pytest.raises(ValueError, match="shape"):
+        radix_probe(sk, sv, starts[:-1], bits, pk)
+    with pytest.raises(ValueError, match="contiguous"):
+        radix_probe(sk, sv, starts, bits, pk[::2])
+
+
+@pytest.mark.cuda
+def test_cuda_radix_index_join_launches_the_kernel_once(dev):
+    """One W4 radix join is one launch; its count and checksum are those
+    of the plain version's outputs on the card, summed the same way, and
+    the count is the CPU's."""
+    bk, bv, pk = (torch.from_numpy(x).to(dev)
+                  for x in radix_case("blanas with misses", scale=100))
+    before = common.LAUNCHES["radix_probe"]
+    n, total = join.index_join(bk, bv, pk, "radix")
+    assert common.LAUNCHES["radix_probe"] == before + 1
+    index = join.build_radix_index(bk, bv)
+    vals, found = radix_probe_ref(index.sorted_keys, index.sorted_vals,
+                                  index.bucket_starts, index.bits, pk)
+    assert int(n) == int(found.sum())
+    assert torch.equal(_f32_bits(total), _f32_bits(vals.sum()))
+    cpu_n, _ = join.index_join(bk.cpu(), bv.cpu(), pk.cpu(), "radix")
+    assert int(n) == int(cpu_n)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,12 @@ is the design each kernel's exactness rests on:
   built by linear probing from ``ops.hash_slot``. A numpy model of that
   table gives the plain version's bits on the edge cases, and the plain
   version gives the reference's answers on them.
+* ``radix_probe`` (``csrc/radix_probe.cu``) stages the top levels of every
+  bucket's search in shared memory and runs a lower bound over (lo, len)
+  that keeps whether the run's upper end holds the key, so a hit needs no
+  last read of the keys. A torch model of
+  that search gives the plain version's bits on the edge cases of
+  ``tests/_radix_cases.py``, and the plain version gives the reference's.
 * ``hash_aggregate_multi`` (``csrc/hash_aggregate.cu``) adds its rows in an
   order fixed by the data and its launch plan: trees over the peers of
   32-row groups, group sums in group order, chunks in chunk order. The
@@ -28,11 +34,17 @@ import torch
 
 from _agg_order import kernel_order_sums, q18_like
 from _join_cases import CASES, SF1_BK, case, colliding_keys
+from _radix_cases import CASES as RADIX_CASES
+from _radix_cases import BITS, bucket_of
+from _radix_cases import case as radix_case
+from repro.analytics import join as jax_join
 from repro.kernels.join_probe.ref import join_probe_ref as jax_join_ref
-from repro_torch.analytics.hashing import partition_of
+from repro_torch.analytics import join as torch_join
+from repro_torch.analytics.hashing import multiply_shift, partition_of
 from repro_torch.kernels.hash_aggregate.ops import launch_plan
 from repro_torch.kernels.join_probe.ops import (hash_slot, join_probe,
                                                 table_log2)
+from repro_torch.kernels.radix_probe import radix_probe
 from repro_torch.kernels.rwkv6_scan.ref import pairwise_sum, wkv6_ref
 
 
@@ -254,6 +266,120 @@ def test_hash_spreads_the_keys_of_one_partition():
         walks.append(((i - s0) & ((1 << b) - 1)) + 1)
     assert np.mean(walks) < 2.0 and max(walks) < 40
     assert np.unique(starts).size > (1 << b) // 4
+
+
+# ---------------------------------------------------------------------------
+# radix_probe
+# ---------------------------------------------------------------------------
+def _lower_bound_step(k, q, lo, ln, eq, live):
+    """The kernel's step on the live lanes: right past k < q, else the
+    left half, whose upper end is k (eq: whether it is q)."""
+    half = ln >> 1
+    right = live & (k < q)
+    left = live & ~(k < q)
+    return (torch.where(right, lo + half + 1, lo),
+            torch.where(right, ln - half - 1, torch.where(left, half, ln)),
+            torch.where(left, k == q, eq))
+
+
+def staged_search_model(index, pk, levels):
+    """The CUDA kernel's design in torch: the keys of the first ``levels``
+    depths of every bucket's search staged by replaying each node's path
+    (0 where its range is empty), the search reading them there, then the
+    rest from the sorted keys, and a hit's value read at the end."""
+    sk, sv, starts = index.sorted_keys, index.sorted_vals, index.bucket_starts
+    nodes = (1 << levels) - 1
+    tree = torch.zeros((starts.numel() - 1, max(nodes, 1)), dtype=sk.dtype)
+    for node in range(1, nodes + 1):
+        lo, ln = starts[:-1].clone(), starts[1:] - starts[:-1]
+        for d in range(node.bit_length() - 2, -1, -1):
+            half = ln >> 1
+            if (node >> d) & 1:
+                lo, ln = lo + half + 1, ln - half - 1
+            else:
+                ln = half
+        at = torch.clamp(lo + (ln >> 1), 0, max(sk.numel() - 1, 0))
+        tree[:, node - 1] = torch.where(ln > 0, sk[at], 0)
+    b = multiply_shift(pk, index.bits)
+    lo, ln = starts[b], starts[b + 1] - starts[b]
+    eq = torch.zeros(pk.shape, dtype=torch.bool)
+    node = torch.ones_like(lo)
+    for _ in range(levels):
+        live = ln > 0
+        k = tree[b, torch.clamp(node - 1, max=nodes - 1)]
+        node = torch.where(live, 2 * node + (k < pk).long(), node)
+        lo, ln, eq = _lower_bound_step(k, pk, lo, ln, eq, live)
+    last = max(sk.numel() - 1, 0)
+    while bool((ln > 0).any()):
+        live = ln > 0
+        k = sk[torch.clamp(lo + (ln >> 1), 0, last)]
+        lo, ln, eq = _lower_bound_step(k, pk, lo, ln, eq, live)
+    at = torch.clamp(lo, 0, last)
+    return torch.where(eq, sv[at], 0.0), eq
+
+
+def _radix_inputs(name, n_bits=BITS):
+    bk, bv, pk = (torch.from_numpy(x) for x in radix_case(name))
+    return torch_join.build_radix_index(bk, bv, bits=n_bits), pk
+
+
+# (staged levels, bits): the kernel's 5 at 1,024 buckets, where a Blanas
+# draw of 2,000 keys leaves runs of a few keys, and at 16 buckets and one,
+# whose runs reach past the staged levels; fewer levels, as at more buckets
+@pytest.mark.parametrize("levels,n_bits", [
+    (5, BITS), (0, BITS), (5, 4), (2, 4), (0, 0)])
+@pytest.mark.parametrize("name", sorted(RADIX_CASES))
+def test_staged_search_model_equals_plain_bits(name, levels, n_bits):
+    index, pk = _radix_inputs(name, n_bits)
+    want_v, want_f = radix_probe(index.sorted_keys, index.sorted_vals,
+                                 index.bucket_starts, index.bits, pk)
+    got_v, got_f = staged_search_model(index, pk, levels)
+    assert np.array_equal(bits(got_v), bits(want_v))
+    assert torch.equal(got_f, want_f)
+
+
+@pytest.mark.parametrize("name", sorted(RADIX_CASES))
+def test_plain_radix_probe_matches_reference(name):
+    """The wrapper on CPU tensors (the plain version) against the JAX
+    reference's probe_radix_index, vals as bits and found."""
+    bk, bv, pk = radix_case(name)
+    index, tpk = _radix_inputs(name)
+    got_v, got_f = radix_probe(index.sorted_keys, index.sorted_vals,
+                               index.bucket_starts, index.bits, tpk)
+    want_v, want_f = jax_join.probe_radix_index(
+        jax_join.build_radix_index(jnp.asarray(bk), jnp.asarray(bv)),
+        jnp.asarray(pk))
+    np.testing.assert_array_equal(got_f.numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(bits(got_v),
+                                  np.asarray(want_v).view(np.int32))
+
+
+def test_radix_probe_cuda_mode_on_a_cpu_tensor_raises():
+    index, pk = _radix_inputs("blanas")
+    with pytest.raises(ValueError, match="CUDA device"):
+        radix_probe(index.sorted_keys, index.sorted_vals,
+                    index.bucket_starts, index.bits, pk, mode="cuda")
+
+
+def test_radix_cases_are_what_they_say():
+    index, pk = _radix_inputs("past the run")
+    starts = index.bucket_starts.numpy()
+    sk = index.sorted_keys.numpy()
+    for bucket in (500, (1 << BITS) - 1):
+        run = sk[starts[bucket]:starts[bucket + 1]]
+        mine = pk.numpy()[bucket_of(pk.numpy()) == bucket]
+        assert run.size == 50 and (mine > run.max()).sum() >= 10
+    assert starts[-1] == starts[(1 << BITS) - 1] + 50
+    index, pk = _radix_inputs("empty buckets")
+    assert (np.diff(index.bucket_starts.numpy()) == 0).sum() > 700
+    bk, _, pk = radix_case("keys -1, -2 and +-2^31")
+    assert {-1, -(1 << 31)} <= set(bk.tolist())
+    assert not {-2, (1 << 31) - 1} & set(bk.tolist())
+    assert {-1, -2, -(1 << 31), (1 << 31) - 1} <= set(pk.tolist())
+    bk, bv, _ = radix_case("duplicate build keys")
+    assert np.unique(bk).size < bk.size and (np.signbit(bv) & (bv == 0)).any()
+    assert bucket_of(np.array([-1], np.int32))[0] == int(
+        multiply_shift(torch.tensor([-1], dtype=torch.int32), BITS)[0])
 
 
 Q18_PLAN = launch_plan(64, 187_648, 2, 23_552, n_sms=132)   # q18 at SF1
